@@ -2,21 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives ``mpc_arpo_project_tpu_torch`` (never JAX) on ``cuda:0``:
+Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
+``cuda:0``:
 
 1. device: the card's name and power limit, torch and CUDA versions; fp32
-   matmuls are pinned to full precision;
-2. build: compiles the CUDA chunk kernel from ``csrc/`` with nvcc;
-3. kernel against plain: real chunk inputs of the flagship engine (B=1024,
-   fp32; the first solve, and the solve after five control steps) through
-   the CUDA kernel and through its plain torch twin, in fp32 and in fp64,
-   with both timed by CUDA events;
-4. main path: the flagship closed loop (radial, noisy, offset-free, debris;
-   Nx=50, 'eig' solve, UKF) for 20 control steps at B=1024, with the
-   kernel's launch count, alive-solves/s, status mix and a per-step split;
-5. small agreement: 4 fp64 control steps at B=8 on the card (kernel) and on
-   the CPU (twin) must give the same statuses, controller codes and
-   trajectories.
+   matmuls are pinned to full precision (no TF32);
+2. build: compiles the three CUDA libraries from ``csrc/`` with nvcc, all at
+   once (one nvcc per source), and logs ptxas' register and shared-memory
+   lines;
+3. kernels against plain, at flagship shapes (Nx=50: nz=256, m=512, B=1024)
+   on real inputs of the flagship engine (the first solve, and the solve
+   after five control steps), in fp32 and fp64, each timed by CUDA events
+   beside its plain twin:
+   - ``eig_chunk`` ('eig' engine);
+   - ``admm_chunk``, ``ns_fused`` (warm and cold, on a need mask that
+     includes rows poisoned with inf and NaN) and ``newton_schulz_inverse``
+     (on the per-problem M of ``_build_M``) ('pallas' engine);
+4. main path 1: the flagship closed loop (radial, noisy, offset-free,
+   debris; 'eig' solve, UKF) for 20 control steps at B=1024, fp32;
+5. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
+   repository's bench configuration with ``BENCH_SOLVE_MODE=pallas``);
+   each main path reports its kernels' launch counts (set to 0 just before
+   the path, read just after), alive-solves/s, the status mix, the mean
+   ADMM iterations per step, a per-step split from CUDA events and the peak
+   device memory;
+6. small agreement, for each solve mode: 4 fp64 control steps at B=8 on the
+   card (kernels) and on the CPU (twins) must give the same statuses,
+   controller codes, termination and ``done_iters``, and trajectories
+   within 1e-6;
+7. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
+   was loaded.
 
 Prints the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
@@ -25,23 +40,31 @@ fails or no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+# H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
+# beside every time): fp32 on the CUDA cores, HBM3 bandwidth
+PEAK_FP32 = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def flagship(T_final, device, dtype):
+def flagship(T_final, device, dtype, solve_mode="eig"):
     """The flagship scenario and the production solver profile (the
-    repository's bench configuration at its defaults)."""
+    repository's bench configuration at its defaults, with
+    ``BENCH_SOLVE_MODE=solve_mode``)."""
     from mpc_arpo_project_tpu_torch import (
         Debris, FailsafeParams, MPCParams, Noise, SimConditions)
     from mpc_arpo_project_tpu_torch.ops import admm
@@ -63,26 +86,57 @@ def flagship(T_final, device, dtype):
         2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
         Noise((0.75, 0.75), 50), False, T_final=T_final)
     settings = admm.ADMMSettings(
-        max_iter=4000, solve_mode="eig", check_every=25, stall_exit_chunks=12,
-        stall_tighten_chunks=24, adaptive_rho=True, pallas_tile=32,
+        max_iter=4000, solve_mode=solve_mode, check_every=25,
+        stall_exit_chunks=12, stall_tighten_chunks=24, adaptive_rho=True,
+        ns_refresh_drift=0.02, ir_steps=1, pallas_tile=32,
         eig_refresh_cap_div=32, eig_deb_equil_smax=32.0, eig_warm_iters=3,
         eig_cold_iters=30, eig_compact_chunks=(2, 4, 8, 16, 24))
     return discrete.build_engine(sim, mpc, fail, debris, settings=settings,
                                  dtype=dtype, device=device)
 
 
+@contextlib.contextmanager
+def _solver_calls(mode, **fns):
+    """Make the solver (``ops.admm``) call ``fns`` in place of the functions
+    of the same names in its kernel module (``admm_eig`` or
+    ``admm_pallas``, by ``mode``) for the duration of the block. The kernel
+    module itself is left as it is: its entries count their launches on
+    themselves."""
+    from mpc_arpo_project_tpu_torch.ops import admm
+
+    attr = "admm_eig" if mode == "eig" else "admm_pallas"
+    mod = getattr(admm, attr)
+    view = types.SimpleNamespace(**vars(mod))
+    for n, f in fns.items():
+        setattr(view, n, f)
+    setattr(admm, attr, view)
+    try:
+        yield
+    finally:
+        setattr(admm, attr, mod)
+
+
+def _solver_module(mode):
+    from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
+
+    return admm_eig if mode == "eig" else admm_pallas
+
+
 def capture_chunks(engine, B, steps_before, seed):
-    """Chunk inputs of the first ``eig_chunk`` call of the first solve and of
-    the solve after ``steps_before`` control steps (cloned)."""
+    """Inputs of the first chunk call (``eig_chunk`` or ``admm_chunk``, by
+    the engine's solve mode) of the first solve and of the solve after
+    ``steps_before`` control steps (cloned)."""
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
+    mode = engine.settings.solve_mode
+    mod = _solver_module(mode)
+    name = "eig_chunk" if mode == "eig" else "admm_chunk"
+    real = getattr(mod, name)
     gen = torch.Generator(device=engine.device).manual_seed(seed)
     noise = discrete.make_noise_sequence(engine, gen, B)
     carry = discrete._init_carry(engine, B, engine.x0.expand(B, 4))
     captured = {}
-    real = admm_eig.eig_chunk
 
     def grab(step):
         def rec(*a, **k):
@@ -93,13 +147,9 @@ def capture_chunks(engine, B, steps_before, seed):
             return real(*a, **k)
         return rec
 
-    try:
-        for i in range(steps_before + 1):
-            admm.admm_eig = types.SimpleNamespace(
-                eig_chunk=grab(i), tinv_safe_refresh=admm_eig.tinv_safe_refresh)
+    for i in range(steps_before + 1):
+        with _solver_calls(mode, **{name: grab(i)}):
             carry, _ = discrete._step(engine, carry, i, noise[i])
-    finally:
-        admm.admm_eig = admm_eig
     return [captured[0], captured[steps_before]]
 
 
@@ -113,6 +163,8 @@ def _cast(args, kw, dtype):
 
 def _row_rel(a, b):
     """Per-row max |a - b| relative to the row's max |b|."""
+    a = a.reshape(a.shape[0], -1)
+    b = b.reshape(b.shape[0], -1)
     scale = b.abs().amax(1).clamp(min=1e-30)
     return (a - b).abs().amax(1) / scale
 
@@ -132,9 +184,21 @@ def _chunk_err(out, ref, parts=False):
     return e if parts else e.amax(1)
 
 
-def compare_kernel(args, kw, dtype, tol, label):
-    """Run the kernel and the twin on the same inputs in ``dtype``; returns
-    (max abs err, summary dict). Raises if they disagree beyond ``tol``.
+def _launch(kernel, a, k, label):
+    """Call a kernel entry and check that it counted exactly one launch
+    (so the result really came from the CUDA kernel)."""
+    n0 = kernel.launches
+    out = kernel(*a, **k)
+    if kernel.launches != n0 + 1:
+        raise AssertionError(f"{label}: {kernel.__name__} did not launch its "
+                             "kernel")
+    return out
+
+
+def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
+    """Run a chunk kernel (``eig_chunk`` or ``admm_chunk``) and its twin on
+    the same inputs in ``dtype``; returns (max abs err, summary dict).
+    Raises if they disagree beyond ``tol``.
 
     Deviation per row: see ``_chunk_err``. fp64 holds every not-done row
     to ``tol``. In fp32 a row passes within ``tol`` of the plain version, or
@@ -146,17 +210,16 @@ def compare_kernel(args, kw, dtype, tol, label):
     than their own error. Either way pinf/dinf must agree on 99.5% of
     rows."""
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm_eig
 
     a, k = _cast(args, kw, dtype)
-    ker = admm_eig.eig_chunk(*a, **k)
-    ref = admm_eig.eig_chunk_ref(*a, **k)
+    ker = _launch(kernel, a, k, label)
+    ref = plain(*a, **k)
     live = ~k["done"]
     n_live = int(live.sum())
     err = _chunk_err(ker, ref)[live]
     flags_k, flags_r = ker[3][:, 4:6] > 0, ref[3][:, 4:6] > 0
     same_flags = (flags_k == flags_r).all(1)[live]
-    for row in torch.nonzero(~same_flags).squeeze(1).tolist():
+    for row in torch.nonzero(~same_flags).squeeze(1).tolist()[:20]:
         slot = int(torch.nonzero(live).squeeze(1)[row])
         log(f"  [{label}] slot {slot}: pinf/dinf kernel "
             f"{flags_k[slot].tolist()} plain {flags_r[slot].tolist()}")
@@ -168,7 +231,7 @@ def compare_kernel(args, kw, dtype, tol, label):
         ok = not bool(over.any())
     else:
         a64, k64 = _cast(args, kw, torch.float64)
-        ref64 = admm_eig.eig_chunk_ref(*a64, **k64)
+        ref64 = plain(*a64, **k64)
         e_ker = _chunk_err(ker, ref64)[live]
         e_ref = _chunk_err(ref, ref64)[live]
         worse = over & (e_ker > 4.0 * e_ref + tol)
@@ -198,6 +261,77 @@ def compare_kernel(args, kw, dtype, tol, label):
     return max_abs, summary
 
 
+def compare_inverse(kernel, plain, args, kw, dtype, tol, label, need=None):
+    """Run a Newton–Schulz entry and its twin on the same inputs in
+    ``dtype``; returns (max abs err on the held rows, summary dict).
+
+    With ``need`` (``ns_fused``: args = stack, w, X_prev, need), rows
+    without need must pass through bit for bit, inf and NaN included, with
+    residual 0. Needy rows whose twin result is not
+    finite (a poisoned warm start) must be non-finite in the kernel too.
+    The other needy rows are held as in ``compare_kernel``: X per row
+    relative to its max-abs, within ``tol`` (fp64), or in fp32 within
+    ``tol`` or no farther from the fp64 twin than 4x the fp32 twin plus
+    ``tol``; the fp64 residuals to ``tol`` absolute."""
+    import torch
+
+    a, k = _cast(args, kw, dtype)
+    xk, rk = _launch(kernel, a, k, label)
+    xr, rr = plain(*a, **k)
+    B = xk.shape[0]
+    if need is None:
+        need = torch.ones(B, dtype=torch.bool, device=xk.device)
+    else:  # ns_fused(stack, w, X_prev, need)
+        x_prev = a[2]
+        same = lambda u, v: ((u == v)
+                             | (torch.isnan(u) & torch.isnan(v))).all()
+        if (not bool(same(xk[~need], x_prev[~need]))
+                or bool((rk[~need] != 0).any())):
+            raise AssertionError(f"{label}: rows without need did not pass "
+                                 "through")
+    fin_r = torch.isfinite(xr).all(2).all(1)
+    fin_k = torch.isfinite(xk).all(2).all(1)
+    if bool((need & ~fin_r & fin_k).any()):
+        raise AssertionError(f"{label}: the kernel is finite where the plain "
+                             "version is not")
+    held = need & fin_r
+    if bool((held & ~fin_k).any()):
+        raise AssertionError(f"{label}: the kernel is not finite where the "
+                             "plain version is")
+    err = _row_rel(xk[held].double(), xr[held].double())
+    over = err > tol
+    if dtype == torch.float64:
+        ok = not bool(over.any())
+        res_err = float((rk[held] - rr[held]).abs().max())
+        ok = ok and res_err <= tol
+    else:
+        a64, k64 = _cast(args, kw, torch.float64)
+        x64, _ = plain(*a64, **k64)
+        e_ker = _row_rel(xk[held].double(), x64[held])
+        e_ref = _row_rel(xr[held].double(), x64[held])
+        worse = over & (e_ker > 4.0 * e_ref + tol)
+        ok = not bool(worse.any())
+        res_err = None
+    max_abs = float((xk[held] - xr[held]).abs().max())
+    summary = dict(rows=int(held.sum()), poisoned_needy=int((need & ~fin_r).sum()),
+                   passed_through=int((~need).sum()),
+                   max_rel_err=float(err.max()),
+                   rows_within_tol=1.0 - float(over.float().mean()),
+                   max_abs_err=max_abs,
+                   residual_kernel_max=float(rk[held].max()),
+                   residual_plain_max=float(rr[held].max()))
+    if res_err is not None:
+        summary["residual_max_abs_diff"] = res_err
+    else:
+        summary.update(max_rel_err_vs_fp64_kernel=float(e_ker.max()),
+                       max_rel_err_vs_fp64_plain=float(e_ref.max()))
+    log(f"  [{label}] {json.dumps(summary)}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel and plain version disagree "
+                             f"(tol {tol:g}): {summary}")
+    return max_abs, summary
+
+
 def time_ms(fn, n=20):
     """Median of ``n`` CUDA-event timings of ``fn()`` (after one warm-up)."""
     import torch
@@ -215,16 +349,271 @@ def time_ms(fn, n=20):
     return statistics.median(times)
 
 
-def main_path(engine, B, seed):
-    """The flagship closed loop on the card; returns the kernel's launch
-    count in this run and the numbers to report."""
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work, the larger
+# of (bytes each input read once + each output written once) / HBM rate and
+# (operations on these inputs) / fp32 peak; data-dependent work (done rows,
+# rows without need) is counted for this run's inputs
+# ---------------------------------------------------------------------------
+
+def _bytes(tensors, live_frac, B):
+    """Bytes of ``tensors``: per-problem ones (leading dim B) scaled by the
+    share of rows the call works on, shared ones in full."""
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
+
+    total = 0.0
+    for t in tensors:
+        if not torch.is_tensor(t):
+            continue
+        b = t.numel() * t.element_size()
+        total += b * live_frac if (t.dim() and t.shape[0] == B) else b
+    return total
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def eig_chunk_bound(args, kw, outs):
+    """One eig chunk: per live problem-iteration, A'v (A_c and the s-part
+    gather/scatter), the eigenbasis solve with the rank-K Woodbury term,
+    and Av; the end-of-chunk residuals and certificates (2 Av, 2 A'v,
+    2 P v)."""
+    x, tinv, gsel_s = args[7], args[1], args[16]
+    B, nz = x.shape
+    m, K, gw = args[8].shape[1], tinv.shape[1], gsel_s.shape[1]
+    live = int((~kw["done"]).sum())
+    a_mv = m * nz + nz * gw + gw * m
+    it = 2 * a_mv + 2 * nz * nz + 2 * K * nz + K * K
+    end = 4 * a_mv + 2 * nz * nz
+    flops = 2.0 * live * (kw["n_iter"] * it + end)
+    return _bound(flops, _bytes(list(args) + list(outs), live / B, B))
+
+
+def admm_chunk_bound(args, kw, outs):
+    """One 'pallas' chunk: per live problem-iteration, A'v and Av (A0 and
+    the 3 gw correction gather/scatter), (1 + ir_steps) Minv applies and
+    ir_steps structured M v products (7 nz^2); the end-of-chunk residuals
+    and certificates (2 Av, 2 A'v, 2 P v)."""
+    x, gsel = args[6], args[12]
+    B, nz = x.shape
+    m, gw3 = args[7].shape[1], gsel.shape[1]
+    ir = kw["ir_steps"]
+    live = int((~kw["done"]).sum())
+    a_mv = m * nz + nz * gw3 + gw3 * m
+    it = 2 * a_mv + (1 + ir) * nz * nz + ir * 7 * nz * nz
+    end = 4 * a_mv + 2 * nz * nz
+    flops = 2.0 * live * (kw["n_iter"] * it + end)
+    return _bound(flops, _bytes(list(args) + list(outs), live / B, B))
+
+
+def ns_bound(n, rows, n_iter, tensors, B, stack=True):
+    """Newton–Schulz on ``rows`` problems: 2 n_iter + 1 products of n^3
+    MACs each (the iteration and the residual), plus building M from the
+    7-matrix stack once (ns_fused)."""
+    flops = 2.0 * rows * ((2 * n_iter + 1) * n ** 3 + (7 * n * n if stack
+                                                        else 0))
+    return _bound(flops, _bytes(tensors, rows / B, B))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def check_eig_kernel(engine, B):
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm_eig
+
+    sets = capture_chunks(engine, B, steps_before=5, seed=1)
+    max_abs = 0.0
+    for label, (a, k) in zip(("first solve", "after 5 steps"), sets):
+        log(f"eig_chunk vs plain, {label}: {a[0].shape[0]} tiles of "
+            f"bt={k['bt']}, {int((~k['done']).sum())} live slots, "
+            f"|tinv|max={float(a[1].abs().max()):.3e}")
+        err32, _ = compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref,
+                                  a, k, torch.float32, 1e-4, f"fp32 {label}")
+        compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref, a, k,
+                       torch.float64, 1e-10, f"fp64 {label}")
+        max_abs = max(max_abs, err32)
+    a, k = sets[1]
+    ms = time_ms(lambda: admm_eig.eig_chunk(*a, **k))
+    plain_ms = time_ms(lambda: admm_eig.eig_chunk_ref(*a, **k))
+    a64, k64 = _cast(a, k, torch.float64)
+    ms64 = time_ms(lambda: admm_eig.eig_chunk(*a64, **k64))
+    plain_ms64 = time_ms(lambda: admm_eig.eig_chunk_ref(*a64, **k64))
+    bound_ms, bound_by = eig_chunk_bound(a, k, admm_eig.eig_chunk(*a, **k))
+    log(f"eig_chunk, 25 iterations, after-5-steps inputs "
+        f"({int((~k['done']).sum())} live slots): fp32 kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+        f"fp64 kernel {ms64:.3f} ms, plain {plain_ms64:.3f} ms (median of "
+        f"20, CUDA events)")
+    return dict(name="eig_chunk", route="cuda",
+                source="mpc_arpo_project_tpu_torch/csrc/eig_chunk.cu",
+                replaces="mpc_arpo_project_tpu/ops/admm_eig.py:75",
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_pallas_kernels(engine, B):
+    """``admm_chunk``, ``ns_fused`` and ``newton_schulz_inverse`` against
+    their twins on inputs of the 'pallas' flagship engine; returns their
+    JSON entries (without launches)."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm, admm_pallas
+
+    sets = capture_chunks(engine, B, steps_before=5, seed=1)
+    max_abs = 0.0
+    for label, (a, k) in zip(("first solve", "after 5 steps"), sets):
+        log(f"admm_chunk vs plain, {label}: {int((~k['done']).sum())} live "
+            f"of {a[6].shape[0]} slots, |minv|max={float(a[0].abs().max()):.3e}")
+        err32, _ = compare_kernel(admm_pallas.admm_chunk,
+                                  admm_pallas.admm_chunk_ref, a, k,
+                                  torch.float32, 1e-4, f"fp32 {label}")
+        compare_kernel(admm_pallas.admm_chunk, admm_pallas.admm_chunk_ref, a,
+                       k, torch.float64, 1e-10, f"fp64 {label}")
+        max_abs = max(max_abs, err32)
+    a, k = sets[1]
+    ms = time_ms(lambda: admm_pallas.admm_chunk(*a, **k))
+    plain_ms = time_ms(lambda: admm_pallas.admm_chunk_ref(*a, **k))
+    a64, k64 = _cast(a, k, torch.float64)
+    ms64 = time_ms(lambda: admm_pallas.admm_chunk(*a64, **k64))
+    plain_ms64 = time_ms(lambda: admm_pallas.admm_chunk_ref(*a64, **k64))
+    bound_ms, bound_by = admm_chunk_bound(a, k,
+                                          admm_pallas.admm_chunk(*a, **k))
+    log(f"admm_chunk, 25 iterations, after-5-steps inputs "
+        f"({int((~k['done']).sum())} live slots): fp32 kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+        f"fp64 kernel {ms64:.3f} ms, plain {plain_ms64:.3f} ms (median of "
+        f"20, CUDA events)")
+    chunk = dict(name="admm_chunk", route="cuda",
+                 source="mpc_arpo_project_tpu_torch/csrc/admm_chunk.cu",
+                 replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:260",
+                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    # ---- Newton–Schulz on the same problems: the weights w7 and the
+    # inverses Minv of the after-5-steps chunk; every 8th row needy (the
+    # flagship's compacted refresh buffer holds B/8 rows), a 3% rho drift
+    # on the needy rows, and poisoned inverses: +inf and NaN on rows
+    # without need, NaN on one needy row (its warm result is NaN)
+    st = engine.settings
+    prob = engine.prob
+    nz = prob.Pbar.shape[0]
+    dev = prob.Pbar.device
+    sigma = float(st.sigma)
+    eye = torch.eye(nz, dtype=prob.Pbar.dtype, device=dev)
+    stack = torch.cat([(prob.Pbar + sigma * eye)[None], prob.G[None],
+                       prob.Fstack], 0).contiguous()
+    minv, coef, w7 = a[0], a[1], a[9]
+    need = torch.zeros(B, dtype=torch.bool, device=dev)
+    need[::8] = True
+    drift = torch.ones(8, dtype=w7.dtype, device=dev)
+    drift[1:7] = 1.03
+    w = torch.where(need[:, None], w7 * drift, w7).contiguous()
+    X_prev = minv.clone()
+    X_prev[1] = torch.inf
+    X_prev[2] = torch.nan
+    X_prev[8] = torch.nan
+    max_ns = 0.0
+    for cold, iters in ((False, st.ns_warm_iters), (True, st.ns_cold_iters)):
+        for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            label = f"ns_fused {'cold' if cold else 'warm'} {str(dt)[6:]}"
+            err, _ = compare_inverse(
+                admm_pallas.ns_fused, admm_pallas.ns_fused_ref,
+                (stack, w, X_prev, need), dict(n_iter=iters, cold=cold), dt,
+                tol, label, need=need)
+            if dt == torch.float32:
+                max_ns = max(max_ns, err)
+
+    # the compacted refresh of the main path: the K = B/8 needy rows alone
+    rows = torch.nonzero(need).squeeze(1)
+    w_k, x_k = w[rows].contiguous(), minv[rows].contiguous()
+    need_k = torch.ones(rows.numel(), dtype=torch.bool, device=dev)
+    M_k = admm_pallas._stack_matrix(stack, w_k).contiguous()
+    times = {}
+    for cold, iters in ((False, st.ns_warm_iters), (True, st.ns_cold_iters)):
+        kw = dict(n_iter=iters, cold=cold)
+        times[cold] = (
+            time_ms(lambda: admm_pallas.ns_fused(stack, w_k, x_k, need_k,
+                                                 **kw)),
+            time_ms(lambda: admm_pallas.ns_fused_ref(stack, w_k, x_k, need_k,
+                                                     **kw)),
+            ns_bound(nz, rows.numel(), iters,
+                     [stack, w_k, x_k, need_k, x_k], rows.numel()))
+    inv_ms = time_ms(lambda: torch.linalg.inv(M_k))
+    for cold in (False, True):
+        (k_ms, p_ms, (b_ms, b_by)) = times[cold]
+        log(f"ns_fused {'cold' if cold else 'warm'} "
+            f"({st.ns_cold_iters if cold else st.ns_warm_iters} iterations) "
+            f"on {rows.numel()} needy rows, fp32: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); torch.linalg.inv "
+            f"of the same M {inv_ms:.3f} ms (median of 20, CUDA events)")
+    k_ms, p_ms, (b_ms, b_by) = times[True]
+    fused = dict(name="ns_fused", route="cuda",
+                 source="mpc_arpo_project_tpu_torch/csrc/ns_inverse.cu",
+                 replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:119",
+                 max_abs_err=max_ns, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=inv_ms)
+
+    # ---- newton_schulz_inverse on the per-problem M of _build_M for the
+    # after-5-steps coefficients and rho scales, from the cold start
+    coeffs = (coef[:, 1], coef[:, 2], coef[:, 3])
+    M = admm._build_M(prob, coeffs, w7[:, 1], sigma).contiguous()
+    X0 = admm_pallas.cold_start_inverse(M)
+    max_inv = 0.0
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        err, _ = compare_inverse(
+            admm_pallas.newton_schulz_inverse,
+            admm_pallas.newton_schulz_inverse_ref, (M, X0),
+            dict(n_iter=st.ns_cold_iters), dt, tol,
+            f"newton_schulz_inverse {str(dt)[6:]}")
+        if dt == torch.float32:
+            max_inv = err
+    Mk, X0k = M[rows].contiguous(), X0[rows].contiguous()
+    i_ms = time_ms(lambda: admm_pallas.newton_schulz_inverse(
+        Mk, X0k, st.ns_cold_iters))
+    i_plain = time_ms(lambda: admm_pallas.newton_schulz_inverse_ref(
+        Mk, X0k, st.ns_cold_iters))
+    i_lib = time_ms(lambda: torch.linalg.inv(Mk))
+    i_bound, i_by = ns_bound(nz, rows.numel(), st.ns_cold_iters,
+                             [Mk, X0k, X0k], rows.numel(), stack=False)
+    log(f"newton_schulz_inverse ({st.ns_cold_iters} iterations) on "
+        f"{rows.numel()} problems, fp32: kernel {i_ms:.3f} ms, plain "
+        f"{i_plain:.3f} ms, bound {i_bound:.3f} ms ({i_by}); "
+        f"torch.linalg.inv {i_lib:.3f} ms (median of 20, CUDA events)")
+    inverse = dict(name="ns_inverse", route="cuda",
+                   source="mpc_arpo_project_tpu_torch/csrc/ns_inverse.cu",
+                   replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:64",
+                   max_abs_err=max_inv, ms=i_ms, plain_ms=i_plain,
+                   bound_ms=i_bound, bound_by=i_by, library_ms=i_lib)
+    return [chunk, fused, inverse]
+
+
+def main_path(engine, B, seed):
+    """One flagship closed loop on the card, in the engine's solve mode:
+    every kernel count is set to 0 just before and read just after; returns
+    the counts and the numbers to report."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
+    mode = engine.settings.solve_mode
+    if mode == "eig":
+        chunk_name, refresh_name = "eig_chunk", "tinv_safe_refresh"
+        path_kernels = ("eig_chunk",)
+    else:
+        chunk_name, refresh_name = "admm_chunk", "masked_safe_refresh"
+        path_kernels = ("admm_chunk", "ns_fused")
+    mod = _solver_module(mode)
+    counters = dict(eig_chunk=admm_eig.eig_chunk,
+                    admm_chunk=admm_pallas.admm_chunk,
+                    ns_fused=admm_pallas.ns_fused,
+                    ns_inverse=admm_pallas.newton_schulz_inverse)
     gen = torch.Generator(device=engine.device).manual_seed(seed)
     noise = discrete.make_noise_sequence(engine, gen, B)
-    spans = {"eig_chunk": [], "tinv_safe_refresh": []}
+    spans = {chunk_name: [], refresh_name: []}
 
     def timed(name, fn):
         def call(*a, **k):
@@ -239,28 +628,26 @@ def main_path(engine, B, seed):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    admm.admm_eig = types.SimpleNamespace(
-        eig_chunk=timed("eig_chunk", admm_eig.eig_chunk),
-        tinv_safe_refresh=timed("tinv_safe_refresh",
-                                admm_eig.tinv_safe_refresh))
-    try:
-        admm_eig.eig_chunk.launches = 0
+    with _solver_calls(mode, **{n: timed(n, getattr(mod, n))
+                                for n in (chunk_name, refresh_name)}):
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         out = discrete.rollout_chunked(
             engine, noise, seg=10,
-            progress=lambda d, t, c: log(f"  step {d}/{t}"))
+            progress=lambda d, t, c: log(f"  [{mode}] step {d}/{t}"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = admm_eig.eig_chunk.launches
-    finally:
-        admm.admm_eig = admm_eig
+        launches = {n: fn.launches for n, fn in counters.items()}
     ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in spans.items()}
 
     T = engine.nsim
     status = out.status.cpu()
     alive = out.ctrl_seq.cpu() > 0
-    if launches <= 0:
-        raise AssertionError("the main path launched no eig_chunk kernel")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"the {mode} main path launched no {name} "
+                                 "kernel")
     if not ((status[alive] >= 0) & (status[alive] <= 4)).all():
         raise AssertionError("alive status outside {0..4}")
     if not (status[~alive] == -1).all():
@@ -278,23 +665,23 @@ def main_path(engine, B, seed):
     mix = {v: int((status[alive] == k).sum()) / max(n_alive, 1)
            for k, v in names.items()}
     wall_ms = wall * 1000.0
-    rest = wall_ms - ms["eig_chunk"] - ms["tinv_safe_refresh"]
+    rest = wall_ms - ms[chunk_name] - ms[refresh_name]
     return launches, dict(
-        steps=T, batch=B, wall_s=wall, alive_steps=n_alive,
+        solve_mode=mode, steps=T, batch=B, wall_s=wall, alive_steps=n_alive,
         alive_solves_per_s=n_alive / wall, status_mix_alive=mix,
         mean_admm_iters_per_step=float(out.iters.float().mean()),
         success_rate=float(out.success.float().mean()),
-        per_step_ms=dict(
-            total=wall_ms / T, chunk_kernel=ms["eig_chunk"] / T,
-            woodbury_refresh=ms["tinv_safe_refresh"] / T,
-            host_syncs_and_glue=rest / T),
-        chunk_launches=launches,
+        per_step_ms={"total": wall_ms / T, "chunk_kernel": ms[chunk_name] / T,
+                     refresh_name: ms[refresh_name] / T,
+                     "host_syncs_and_glue": rest / T},
+        launches={n: launches[n] for n in path_kernels},
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
     )
 
 
-def small_agreement(seed):
-    """4 fp64 control steps at B=8: the card (kernel) against the CPU (twin)."""
+def small_agreement(seed, solve_mode):
+    """4 fp64 control steps at B=8: the card (kernels) against the CPU
+    (twins)."""
     import torch
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
@@ -302,7 +689,7 @@ def small_agreement(seed):
     rng = np.random.default_rng(seed)
     draws = None
     for device in ("cuda", "cpu"):
-        eng = flagship(2.0, device, torch.float64)
+        eng = flagship(2.0, device, torch.float64, solve_mode)
         if draws is None:
             draws = rng.standard_normal((eng.nsim // eng.noise_rep + 2, 8, 4))
         ns = discrete.noise_sequence_from_draws(eng, draws)
@@ -310,13 +697,22 @@ def small_agreement(seed):
     g, c = outs
     for name in ("status", "ctrl_seq", "i_term", "done_iters"):
         if not torch.equal(getattr(g, name).cpu(), getattr(c, name)):
-            raise AssertionError(f"small agreement: {name} differs\n"
-                                 f"{getattr(g, name).cpu()}\n{getattr(c, name)}")
+            raise AssertionError(f"small agreement ({solve_mode}): {name} "
+                                 f"differs\n{getattr(g, name).cpu()}\n"
+                                 f"{getattr(c, name)}")
     dx = float((g.x_true.cpu() - c.x_true).abs().max())
     if dx > 1e-6:
-        raise AssertionError(f"small agreement: x_true differs by {dx}")
-    log(f"  4 steps, B=8, fp64: statuses, controller codes, termination and "
-        f"done_iters equal; max |x_true diff| = {dx:.3e}")
+        raise AssertionError(f"small agreement ({solve_mode}): x_true differs "
+                             f"by {dx}")
+    log(f"  [{solve_mode}] 4 steps, B=8, fp64: statuses, controller codes, "
+        f"termination and done_iters equal; max |x_true diff| = {dx:.3e}")
+
+
+def _foreign_modules():
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "mpc_arpo_project_tpu", "tools")
+                  or m.startswith(("jax.", "mpc_arpo_project_tpu.",
+                                   "tools.")))
 
 
 def main() -> int:
@@ -325,8 +721,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mpc_arpo_project_tpu_torch.ops import _build, admm_eig
+    from mpc_arpo_project_tpu_torch.ops import _build, admm_eig, admm_pallas
 
+    t_start = time.perf_counter()
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -340,61 +737,59 @@ def main() -> int:
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
-    # 2. build
+    # 2. build: one nvcc per library, all started together
     t0 = time.perf_counter()
-    admm_eig._lib()
-    log(f"build: eig_chunk library ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {(_build.build_seconds.get('eig_chunk') or 0.0):.2f} s)")
-    for line in _build.ptxas_log.get("eig_chunk", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    libs = {"eig_chunk": admm_eig._lib, "admm_chunk": admm_pallas._chunk_lib,
+            "ns_inverse": admm_pallas._ns_lib}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(f) for f in libs.values()]:
+            fut.result()
+    log(f"build: {len(libs)} libraries ready in {time.perf_counter() - t0:.2f}"
+        " s (nvcc " + ", ".join(f"{n} {(_build.build_seconds.get(n) or 0.0):.2f} s"
+                                for n in libs) + ")")
+    for name in libs:
+        for line in _build.ptxas_log.get(name, "").splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas [{name}]: {line.strip()}")
 
-    # 3. kernel against plain at flagship shapes
+    # 3. kernels against plain at flagship shapes
     B = 1024
     t0 = time.perf_counter()
-    engine = flagship(10.0, "cuda", torch.float32)
-    log(f"flagship engine (nz={engine.prob.Pbar.shape[0]}, "
-        f"m={engine.prob.A0bar.shape[0]}, K={engine.prob.eig_YT.shape[1]}) "
-        f"built in {time.perf_counter() - t0:.1f} s")
-    sets = capture_chunks(engine, B, steps_before=5, seed=1)
-    max_abs = 0.0
-    for label, (a, k) in zip(("first solve", "after 5 steps"), sets):
-        log(f"kernel vs plain, {label}: {a[0].shape[0]} tiles of "
-            f"bt={k['bt']}, {int((~k['done']).sum())} live slots, "
-            f"|tinv|max={float(a[1].abs().max()):.3e}")
-        err32, _ = compare_kernel(a, k, torch.float32, 1e-4, f"fp32 {label}")
-        compare_kernel(a, k, torch.float64, 1e-10, f"fp64 {label}")
-        max_abs = max(max_abs, err32)
-    a, k = sets[1]
-    ms = time_ms(lambda: admm_eig.eig_chunk(*a, **k))
-    plain_ms = time_ms(lambda: admm_eig.eig_chunk_ref(*a, **k))
-    a64, k64 = _cast(a, k, torch.float64)
-    ms64 = time_ms(lambda: admm_eig.eig_chunk(*a64, **k64))
-    plain_ms64 = time_ms(lambda: admm_eig.eig_chunk_ref(*a64, **k64))
-    log(f"eig_chunk, 25 iterations, after-5-steps inputs "
-        f"({int((~k['done']).sum())} live slots): fp32 kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; fp64 kernel {ms64:.3f} ms, plain "
-        f"{plain_ms64:.3f} ms (median of 20, CUDA events)")
+    eig_engine = flagship(10.0, "cuda", torch.float32, "eig")
+    pal_engine = flagship(10.0, "cuda", torch.float32, "pallas")
+    log(f"flagship engines (nz={eig_engine.prob.Pbar.shape[0]}, "
+        f"m={eig_engine.prob.A0bar.shape[0]}, "
+        f"K={eig_engine.prob.eig_YT.shape[1]}, 3gw="
+        f"{pal_engine.prob.gsel.shape[1]}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    entries = [check_eig_kernel(eig_engine, B)]
+    entries += check_pallas_kernels(pal_engine, B)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
-    # 4. main path
-    launches, rep = main_path(engine, B, seed=2)
-    log("main path: " + json.dumps(rep))
+    # 4-5. the main paths
+    launches = {}
+    for engine, seed in ((eig_engine, 2), (pal_engine, 2)):
+        counts, rep = main_path(engine, B, seed)
+        log(f"main path ({engine.settings.solve_mode}): " + json.dumps(rep))
+        for name in rep["launches"]:
+            launches[name] = counts[name]
+    log(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
-    # 5. small end-to-end agreement, card against CPU
-    small_agreement(seed=3)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the port imported JAX")
+    # 6. small end-to-end agreement, card against CPU
+    small_agreement(3, "eig")
+    small_agreement(4, "pallas")
 
-    print(json.dumps({"kernels": [{
-        "name": "eig_chunk",
-        "route": "cuda",
-        "source": "mpc_arpo_project_tpu_torch/csrc/eig_chunk.cu",
-        "replaces": "mpc_arpo_project_tpu/ops/admm_eig.py:75",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 7. import check
+    bad = _foreign_modules()
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+
+    for e in entries:
+        e["launches"] = launches.get(e["name"], 0)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

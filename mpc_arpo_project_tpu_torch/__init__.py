@@ -3,17 +3,21 @@
 A port of ``mpc_arpo_project_tpu`` (JAX/Pallas on a TPU) to PyTorch on an
 NVIDIA H100, with the same module layout and public names. The JAX package
 stays the reference every part of the port is tested against. This package
-never imports JAX; it reuses the reference's JAX-free modules (``config``,
-``ops.qp_builder`` and ``tools.ref_sim``).
+never imports JAX nor anything of the JAX package: what it needs of the
+reference's JAX-free modules it keeps as its own copies (``config``,
+``ops.qp_builder``, ``ops.host_synthesis``).
 
 Ported so far: the discrete closed loop (``rollout.discrete``) with the
-'eig' solve (``ops.admm``, ``ops.admm_eig`` and its CUDA chunk kernel), the
-UKF (``ops.ukf``) and the dynamic constraints (``ops.constraints``).
+'eig' solve (``ops.admm``, ``ops.admm_eig`` and its CUDA chunk kernel) and
+the 'pallas' solve (``ops.admm``, ``ops.admm_pallas`` and its CUDA chunk and
+Newton–Schulz kernels), the UKF (``ops.ukf``) and the dynamic constraints
+(``ops.constraints``). Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from mpc_arpo_project_tpu.config import (
+from mpc_arpo_project_tpu_torch.config import (
     Noise,
     Debris,
     SimConditions,

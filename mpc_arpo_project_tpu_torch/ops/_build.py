@@ -3,8 +3,10 @@
 Each library is compiled at first use from ``mpc_arpo_project_tpu_torch/
 csrc/`` into ``mpc_arpo_project_tpu_torch/build/`` as a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). The file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is loaded as it is.
+name carries a hash of the sources, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source builds anew and an unchanged one is loaded
+as it is. Libraries of distinct names may be built from several threads at
+once (``nvcc`` runs as a subprocess).
 """
 
 from __future__ import annotations
@@ -49,8 +51,10 @@ def load_library(name: str, sources) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     paths = [os.path.join(CSRC, s) for s in sources]
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")

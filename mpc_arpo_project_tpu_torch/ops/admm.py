@@ -1,25 +1,32 @@
-"""Batched OSQP-style ADMM QP solver, 'eig' solve mode, in PyTorch.
+"""Batched OSQP-style ADMM QP solver, 'eig' and 'pallas' solve modes, in
+PyTorch.
 
 Counterpart of ``mpc_arpo_project_tpu/ops/admm.py``: the same settings, the
-same problem data and the same iteration, with the per-iteration work in the
-fused chunk of ``ops.admm_eig`` (a hand-written CUDA kernel on the GPU, its
-plain torch twin on the CPU). The rationale behind each setting and each
-piece of solver machinery is documented at its definition in the JAX
-package; this module keeps the names so each piece is found there at once.
+same problem data and the same iteration. 'eig' runs the per-iteration work
+in the fused chunk of ``ops.admm_eig``; 'pallas' in the fused chunk and the
+Newton–Schulz inverse maintenance of ``ops.admm_pallas`` (each a
+hand-written CUDA kernel on the GPU, its plain torch twin on the CPU). The
+rationale behind each setting and each piece of solver machinery is
+documented at its definition in the JAX package; this module keeps the
+names so each piece is found there at once.
 
 What differs from the JAX package:
 
-* only ``solve_mode='eig'`` is ported; 'chol' and 'pallas' raise;
+* ``solve_mode='chol'`` is not ported and raises;
 * the ``lax.while_loop`` chunk loops are Python loops with one host read per
-  chunk (the all-done flag, read together with the refresh flag), and the
-  ``lax.cond`` refresh branches are Python ``if``s on host reads — each such
-  read is a device sync;
+  chunk (the all-done flag or live count, read together with the refresh
+  flag), and the ``lax.cond`` refresh branches are Python ``if``s on host
+  reads — each such read is a device sync;
 * ``eig_rescue_mode`` must be ``'dual'`` (the JAX package silently runs the
   'near' rescue for any other string), and a rescue window that can never
-  fire (``eig_rescue_chunks >= stall_exit_chunks``) is refused.
+  fire (``eig_rescue_chunks >= stall_exit_chunks``) is refused;
+* 'pallas' runs every product in full precision: ``mxu_precision`` other
+  than ``'highest'`` is refused, and ``minv_two_limb`` has no effect.
 
 Problem setup (``prepare_problem``) stays numpy/scipy float64 on the host and
-converts to torch only at the end.
+converts to torch only at the end. The entry points put their tensors on the
+CUDA device unless the caller passes ``device="cpu"``; with no CUDA device
+they raise rather than fall back.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mpc_arpo_project_tpu.ops.qp_builder import QPDims, QPStatic, materialize_A
-from mpc_arpo_project_tpu_torch.ops import admm_eig
+from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, QPStatic, materialize_A
+from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
 
 MIN_SCALING = 1e-4
 MAX_SCALING = 1e4
@@ -51,9 +58,11 @@ class ADMMSettings(NamedTuple):
 
     TPU layout knobs kept for a common surface, with no effect here:
     ``eig_apply`` (three TPU layouts of one product a·T⁻¹; the CUDA kernel
-    has one), ``mxu_precision`` (every product here is full fp32/fp64 FMA)
-    and ``minv_two_limb`` ('pallas' mode only). ``pallas_tile`` keeps its
-    meaning as the combo-pure slot-group width ``bt``."""
+    has one), ``mxu_precision`` (every product here is full fp32/fp64 FMA;
+    'pallas' mode refuses any value but 'highest') and ``minv_two_limb``.
+    ``pallas_tile`` keeps its meaning as the combo-pure slot-group width
+    ``bt`` of 'eig' mode and the tile width that sizes 'pallas' mode's
+    refresh and cascade buffers."""
 
     sigma: float = 1e-6
     alpha: float = 1.6
@@ -146,7 +155,8 @@ _INDEX_FIELDS = ("fun_rows", "deb_rows", "velx_cols", "vely_cols", "posx_cols")
 
 class ADMMState(NamedTuple):
     """Warm-start state carried across control steps (scaled iterates).
-    In 'eig' mode ``minv`` holds the (B, K, K) Woodbury inner inverse."""
+    ``minv`` holds the (B, nz, nz) approximate inverse normal matrix in
+    'pallas' mode and the (B, K, K) Woodbury inner inverse in 'eig' mode."""
 
     xbar: torch.Tensor  # (B, nz)
     ybar: torch.Tensor  # (B, m)
@@ -211,12 +221,13 @@ def prepare_problem(
     nominal_coeffs=(1.0, 1.0, 0.0),
     dtype=torch.float32,
     pad: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> ADMMProblem:
     """Equilibrate once on the nominal problem and precompute the structured
     normal-matrix pieces, in host float64; the result lands on ``device`` in
     ``dtype``. ``pad=True`` rounds nz up to a multiple of 128 and m to a
     multiple of 256 with inert rows/columns, as the JAX package does."""
+    device = resolve_device(device)
     P, q, A0 = static.P, static.q, static.A0
     A_nom = materialize_A(static, *nominal_coeffs)
     _, _, _, D, E, c = _ruiz(P, q, A_nom, settings.scaling_iters)
@@ -368,14 +379,25 @@ def prepare_problem(
     return problem_from_numpy(fields, device=device, dtype=dtype)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point puts its tensors on; raises when it names
+    CUDA and no CUDA device is present (no quiet move to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
 def _as_fields(fields) -> dict:
     return fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
 
 
-def problem_from_numpy(fields, device="cpu", dtype=torch.float64) -> ADMMProblem:
+def problem_from_numpy(fields, device="cuda", dtype=torch.float64) -> ADMMProblem:
     """Build the port's ``ADMMProblem`` from numpy arrays: a mapping, or any
     named tuple with the same field names (such as the JAX package's
     ``ADMMProblem``, whose device arrays ``np.asarray`` reads)."""
+    device = resolve_device(device)
     fields = _as_fields(fields)
     out = {}
     for name in ADMMProblem._fields:
@@ -389,10 +411,11 @@ def problem_from_numpy(fields, device="cpu", dtype=torch.float64) -> ADMMProblem
     return ADMMProblem(**out)
 
 
-def state_from_numpy(fields, device="cpu", dtype=torch.float64) -> ADMMState:
+def state_from_numpy(fields, device="cuda", dtype=torch.float64) -> ADMMState:
     """Build the port's ``ADMMState`` from numpy arrays (mapping or named
     tuple with the JAX package's field names) — lets tests warm-start both
     packages from one iterate."""
+    device = resolve_device(device)
     fields = _as_fields(fields)
     out = {}
     for name in ADMMState._fields:
@@ -425,6 +448,38 @@ def init_state(prob: ADMMProblem, batch: int,
 
 
 # --------------------------------------------------------------------------
+# batched structured matvecs (scaled space)
+# --------------------------------------------------------------------------
+
+def _matvec_A(prob: ADMMProblem, coeffs, x):
+    """Abar_k x for the batch: A0bar + c1 S1bar + c2 S2bar + s S3bar through
+    the stacked AK. x: (B, nz) -> (B, m)."""
+    c1, c2, s = coeffs
+    m = prob.A0bar.shape[0]
+    y = x @ prob.AK.T
+    return (y[:, :m] + c1[:, None] * y[:, m:2 * m]
+            + c2[:, None] * y[:, 2 * m:3 * m] + s[:, None] * y[:, 3 * m:])
+
+
+def _matvec_AT(prob: ADMMProblem, coeffs, w):
+    """Abar_k' w = [w, c1 w, c2 w, s w] AK. w: (B, m) -> (B, nz)."""
+    c1, c2, s = coeffs
+    w4 = torch.cat([w, c1[:, None] * w, c2[:, None] * w, s[:, None] * w], 1)
+    return w4 @ prob.AK
+
+
+def _build_M(prob: ADMMProblem, coeffs, rho_scale, sigma):
+    """Batched normal matrix M_k = Pbar + sigma I + r_k (G + sum w_t F_t)."""
+    c1, c2, s = coeffs
+    w = torch.stack([c1, c2, c1 * c2, s, s * s], -1)
+    corr = torch.tensordot(w, prob.Fstack, dims=([1], [0]))
+    nz = prob.Pbar.shape[0]
+    base = prob.Pbar + sigma * torch.eye(nz, dtype=prob.Pbar.dtype,
+                                         device=prob.Pbar.device)
+    return base[None] + rho_scale[:, None, None] * (prob.G[None] + corr)
+
+
+# --------------------------------------------------------------------------
 # solve
 # --------------------------------------------------------------------------
 
@@ -445,10 +500,7 @@ def admm_solve(
     if settings.solve_mode == "chol":
         raise NotImplementedError(
             "solve_mode='chol' is not ported yet (ROADMAP queue 1, item 7)")
-    if settings.solve_mode == "pallas":
-        raise NotImplementedError(
-            "solve_mode='pallas' is not ported yet (ROADMAP queue 1, item 11)")
-    if settings.solve_mode != "eig":
+    if settings.solve_mode not in ("eig", "pallas"):
         raise ValueError(f"unknown solve_mode {settings.solve_mode!r}")
     B = l.shape[0]
     if qbar is None:
@@ -462,6 +514,9 @@ def admm_solve(
     ubar = prob.E * u
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=l.device)
+    if settings.solve_mode == "pallas":
+        return _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar,
+                             active)
     return _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active)
 
 
@@ -868,4 +923,271 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         done_iters=(done_chunk * settings.check_every).to(torch.int32),
         pri_tol=rp_tol,
         dua_tol=rd_tol,
+    )
+
+
+class _PCarry(NamedTuple):
+    """Per-problem solver state of the 'pallas' chunk loop (every field is
+    gathered by the overtime cascade; the chunk counter is a separate
+    scalar)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    rp: torch.Tensor
+    rd: torch.Tensor
+    done: torch.Tensor
+    status: torch.Tensor
+    minv: torch.Tensor
+    rho_scale: torch.Tensor
+    best_rp: torch.Tensor
+    best_rd: torch.Tensor
+    last_prog: torch.Tensor
+    done_chunk: torch.Tensor
+
+
+def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
+    """Fused-chunk solve path with Newton–Schulz inverse maintenance; see
+    the JAX package's ``_solve_pallas`` for the refresh gating, the
+    compacted needy refresh and the overtime cascade, which this follows
+    step for step."""
+    if settings.mxu_precision != "highest":
+        raise ValueError(
+            f"mxu_precision={settings.mxu_precision!r}: the port runs every "
+            "product in full precision; only 'highest' is supported")
+    dt = prob.Pbar.dtype
+    dev = prob.Pbar.device
+    B = lbar.shape[0]
+    nz = prob.Pbar.shape[0]
+    bt = _tile_width(B, settings.pallas_tile)
+    c1, c2, s = coeffs
+    coef = torch.stack([torch.ones_like(c1), c1, c2, s], 1)
+    qbar = qbar.contiguous()
+    sigma = float(settings.sigma)
+
+    # the 7 shared structure matrices of M_k = base + r_k (G + c1 F1 + c2 F2
+    # + c1 c2 F12 + s F3 + s^2 F33), stacked for the refresh kernel and
+    # side by side for the chunk kernel's refinement products
+    eye = torch.eye(nz, dtype=dt, device=dev)
+    ns_stack = torch.cat([(prob.Pbar + sigma * eye)[None], prob.G[None],
+                          prob.Fstack], 0).contiguous()
+    stack7 = torch.cat(list(ns_stack), 1).contiguous()
+
+    def make_ns_weights(coef_l):
+        cc1, cc2, ss = coef_l[:, 1], coef_l[:, 2], coef_l[:, 3]
+
+        def ns_weights(r):
+            return torch.stack(
+                [torch.ones_like(r), r, r * cc1, r * cc2, r * cc1 * cc2,
+                 r * ss, r * ss * ss, torch.zeros_like(r)], 1)
+
+        return ns_weights
+
+    def make_ns_refresh(coef_l, bt_l):
+        ns_weights = make_ns_weights(coef_l)
+        B_l = coef_l.shape[0]
+
+        def full_refresh(minv, rho_scale, needmask):
+            return admm_pallas.masked_safe_refresh(
+                ns_stack, ns_weights(rho_scale), minv, needmask,
+                warm_iters=settings.ns_warm_iters,
+                cold_iters=settings.ns_cold_iters, bt=bt_l)
+
+        # compact the (usually sparse) needy rows into a K-slot buffer;
+        # the full-width refresh when they do not fit
+        div = settings.refresh_compact_div
+        K = -(-max(bt_l, B_l // max(div, 1)) // bt_l) * bt_l
+        if not div or K >= B_l:
+            return full_refresh
+
+        def compact_refresh(minv, rho_scale, needmask):
+            if int(needmask.sum()) > K:
+                return full_refresh(minv, rho_scale, needmask)
+            idx = torch.argsort((~needmask).to(torch.int32), stable=True)[:K]
+            sub = admm_pallas.masked_safe_refresh(
+                ns_stack, make_ns_weights(coef_l[idx])(rho_scale[idx]),
+                minv[idx], needmask[idx], warm_iters=settings.ns_warm_iters,
+                cold_iters=settings.ns_cold_iters,
+                bt=_tile_width(K, settings.pallas_tile))
+            out = minv.clone()
+            out[idx] = sub
+            return out
+
+        return compact_refresh
+
+    # iterate sanitation: non-finite warm iterates restart cold
+    it_finite = (torch.isfinite(state.xbar).all(1)
+                 & torch.isfinite(state.ybar).all(1)
+                 & torch.isfinite(state.zbar).all(1))
+    xbar0 = torch.where(it_finite[:, None], state.xbar, 0.0)
+    ybar0 = torch.where(it_finite[:, None], state.ybar, 0.0)
+    zbar0 = torch.where(it_finite[:, None], state.zbar, 0.0)
+
+    # refresh gating: sign flips, slope drift, rho rescale, cold state, the
+    # NaN mark of a MAX_ITER solve (NaN compares unequal), non-finite
+    # iterates; skipped problems never refresh
+    rc = state.ref_coef
+    drift = settings.ns_refresh_drift
+    need = ((~it_finite) | (rc[:, 0] != c1) | (rc[:, 1] != c2)
+            | ~((rc[:, 2] - s).abs() <= drift * (1.0 + rc[:, 2].abs()))
+            | (rc[:, 3] != state.rho_scale) | ~state.minv_ok) & active
+    minv0 = state.minv
+    if bool(need.any()):
+        minv0 = make_ns_refresh(coef, bt)(state.minv, state.rho_scale, need)
+    ref0 = torch.where(need[:, None],
+                       torch.stack([c1, c2, s, state.rho_scale], 1), rc)
+
+    n_checks = settings.max_iter // settings.check_every
+    adapt_stride = max(1, settings.adaptive_rho_interval // settings.check_every)
+    rho_lo = RHO_MIN / settings.rho_bar
+    rho_hi = RHO_MAX / (settings.rho_bar * RHO_EQ_SCALE)
+    cinv = 1.0 / prob.c
+
+    def run_loop(cy: _PCarry, chunk: int, coef_l, qbar_l, lbar_l, ubar_l,
+                 bt_l, stop_at=None):
+        """The chunk loop over a (possibly compacted) problem subset, until
+        every problem is done, the iteration cap, or (``stop_at``) the live
+        count fits that many slots. One host read per chunk: the live count,
+        together with the adaptive-rho trigger flag."""
+        ns_refresh = make_ns_refresh(coef_l, bt_l)
+        ns_weights = make_ns_weights(coef_l)
+        n_live = int((~cy.done).sum())
+        while (n_live > 0 and chunk < n_checks
+               and (stop_at is None or n_live > stop_at)):
+            nc = chunk + 1
+            done = cy.done
+            rho_scale = cy.rho_scale
+            rho = (rho_scale[:, None] * prob.rho_vec).contiguous()
+            x_n, y_n, z_n, stats = admm_pallas.admm_chunk(
+                cy.minv, coef_l, qbar_l, lbar_l, ubar_l, rho, cy.x, cy.y,
+                cy.z, ns_weights(rho_scale), prob.A0bar, prob.Pbar,
+                prob.gsel, prob.scat, prob.rsel, prob.gscat, stack7,
+                prob.Einv, prob.Dinv, done=done,
+                n_iter=settings.check_every, sigma=sigma,
+                alpha=float(settings.alpha),
+                eps_pinf=float(settings.eps_pinf),
+                eps_dinf=float(settings.eps_dinf),
+                pinf_margin=float(settings.pinf_support_margin), bt=bt_l,
+                ir_steps=settings.ir_steps, two_limb=settings.minv_two_limb)
+            rp = torch.where(done, cy.rp, stats[:, 0])
+            rd = torch.where(done, cy.rd, cinv * stats[:, 2])
+            rp_rel, rd_rel = stats[:, 1], cinv * stats[:, 3]
+            pinf = stats[:, 4] > 0
+            dinf = stats[:, 5] > 0
+            conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
+                    & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
+            new_status = torch.where(
+                conv, SOLVED,
+                torch.where(pinf, PRIMAL_INFEASIBLE,
+                            torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
+            ).to(torch.int32)
+            status = torch.where(done, cy.status, new_status)
+            keep = done[:, None]
+            x = torch.where(keep, cy.x, x_n)
+            y = torch.where(keep, cy.y, y_n)
+            z = torch.where(keep, cy.z, z_n)
+            done = done | conv | pinf | dinf
+
+            last_prog = cy.last_prog
+            if settings.stall_exit_chunks:
+                thr = (settings.stall_improve2
+                       if nc >= settings.stall_tighten_chunks
+                       else settings.stall_improve)
+                improved = (rp <= thr * cy.best_rp) | (rd <= thr * cy.best_rd)
+                last_prog = last_prog.masked_fill(done | improved, nc)
+                stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
+                status = status.masked_fill(stalled, MAX_ITER)
+                done = done | stalled
+            best_rp = torch.minimum(cy.best_rp, rp)
+            best_rd = torch.minimum(cy.best_rd, rd)
+
+            minv = cy.minv
+            if settings.adaptive_rho:
+                num = rp / rp_rel.clamp(min=1e-10)
+                den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
+                ratio = torch.sqrt(num / den)
+                tol = settings.adaptive_rho_tol
+                trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
+                if nc % adapt_stride:
+                    trig = torch.zeros_like(trig)
+                new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
+                new_scale = new_scale.clamp(rho_lo, rho_hi)
+                any_trig, n_live = torch.stack(
+                    [trig.any().long(), (~done).sum()]).tolist()
+                if any_trig:
+                    minv = ns_refresh(minv, new_scale, trig)
+                rho_scale = new_scale
+            else:
+                n_live = int((~done).sum())
+
+            done_chunk = cy.done_chunk.masked_fill(done & ~cy.done, nc)
+            cy = _PCarry(x, y, z, rp, rd, done, status, minv, rho_scale,
+                         best_rp, best_rd, last_prog, done_chunk)
+            chunk = nc
+        return cy, chunk, n_live
+
+    # overtime cascade widths: halve from B/2 down to ~B/overtime_div
+    # (tile-rounded, strictly decreasing); empty = no compaction
+    widths = []
+    if settings.overtime_div and settings.overtime_div > 1:
+        target = max(bt, B // settings.overtime_div)
+        w = B // 2
+        while w >= target and w >= bt:
+            wq = -(-w // bt) * bt
+            if 0 < wq <= B // 2 and (not widths or wq < widths[-1]):
+                widths.append(wq)
+            w //= 2
+
+    rp0 = torch.full((B,), torch.inf, dtype=dt, device=dev)
+    zi = torch.zeros((B,), dtype=torch.int64, device=dev)
+    cy = _PCarry(
+        x=xbar0, y=ybar0, z=zbar0, rp=rp0, rd=rp0, done=~active,
+        status=torch.zeros((B,), dtype=torch.int32, device=dev),
+        minv=minv0, rho_scale=state.rho_scale, best_rp=rp0, best_rd=rp0,
+        last_prog=zi, done_chunk=zi)
+    cy, chunk, n_live = run_loop(cy, 0, coef, qbar, lbar, ubar, bt,
+                                 stop_at=widths[0] if widths else None)
+
+    for li, w in enumerate(widths):
+        if n_live == 0:
+            break
+        next_stop = widths[li + 1] if li + 1 < len(widths) else None
+        # stragglers first (stable: done=False rows in problem order); the
+        # previous lane stops only once they fit, so idx covers every live
+        # row (at the iteration cap the leftovers finish as MAX_ITER)
+        idx = torch.argsort(cy.done.to(torch.int32), stable=True)[:w]
+        sub = _PCarry(*(v[idx] for v in cy))
+        sub, chunk, n_live_sub = run_loop(
+            sub, chunk, coef[idx], qbar[idx], lbar[idx], ubar[idx],
+            _tile_width(w, settings.pallas_tile), stop_at=next_stop)
+        merged = []
+        for full, part in zip(cy, sub):
+            full = full.clone()
+            full[idx] = part
+            merged.append(full)
+        cy = _PCarry(*merged)
+        n_live = int((~cy.done).sum())
+
+    done_chunk = torch.where(active & (cy.done_chunk == 0), chunk,
+                             cy.done_chunk)
+    status = torch.where(cy.done, cy.status, MAX_ITER).to(torch.int32)
+    # the rho the inverse now reflects; NaN-mark MAX_ITER rows so that the
+    # next solve refreshes their inverse
+    ref_out = ref0.clone()
+    ref_out[:, 3] = cy.rho_scale
+    ref_out = torch.where((status == MAX_ITER)[:, None], torch.nan, ref_out)
+    zeros = torch.zeros((B,), dtype=dt, device=dev)
+    return ADMMResult(
+        x=prob.D * cy.x,
+        status=status,
+        iters=chunk * settings.check_every,
+        pri_res=cy.rp,
+        dua_res=cy.rd,
+        state=ADMMState(xbar=cy.x, ybar=cy.y, zbar=cy.z,
+                        rho_scale=cy.rho_scale, minv=cy.minv,
+                        minv_ok=torch.ones((), dtype=torch.bool, device=dev),
+                        ref_coef=ref_out),
+        done_iters=(done_chunk * settings.check_every).to(torch.int32),
+        pri_tol=zeros,
+        dua_tol=zeros,
     )

@@ -65,7 +65,7 @@ def _chunk_rows(Ac, W, YT, tinv, scal, qbar, lbar, ubar, dg, x, y, z, pbar,
         e = h @ YT
         return ((u - e) * dg) @ W.T
 
-    x0, y0, z0 = x, y, z
+    x0, y0 = x, y
     for _ in range(n_iter):
         rhs = sigma * x - qbar + matvec_AT(rho * z - y)
         xt = solve_M(rhs)
@@ -75,9 +75,21 @@ def _chunk_rows(Ac, W, YT, tinv, scal, qbar, lbar, ubar, dg, x, y, z, pbar,
         z_n = torch.minimum(torch.maximum(z_tmp + y / rho, lbar), ubar)
         y = y + rho * (z_tmp - z_n)
         x, z = x_n, z_n
-    dx = x - x0
-    dy = y - y0
+    stats = chunk_certificates(x, y, z, x - x0, y - y0, qbar, lbar, ubar,
+                               matvec_A, matvec_AT, pbar, einv, dinv,
+                               eps_pinf=eps_pinf, eps_dinf=eps_dinf,
+                               pinf_margin=pinf_margin)
+    return x, y, z, stats
 
+
+def chunk_certificates(x, y, z, dx, dy, qbar, lbar, ubar, matvec_A,
+                       matvec_AT, pbar, einv, dinv, *, eps_pinf, eps_dinf,
+                       pinf_margin):
+    """End-of-chunk scaled residuals and Farkas certificates of a row block,
+    in the JAX kernels' float-mask arithmetic: stats (rows, 8) = rp,
+    rp_rel, rd, rd_rel, pinf, dinf, ||dy||_inf, ||dx||_inf. Shared by the
+    'eig' and the 'pallas' chunk twins, which differ only in their A
+    matvecs."""
     amax = lambda a: torch.amax(a, dim=1)
     Ax = matvec_A(x)
     rp = amax((einv * (Ax - z)).abs())
@@ -119,8 +131,7 @@ def _chunk_rows(Ac, W, YT, tinv, scal, qbar, lbar, ubar, dg, x, y, z, pbar,
     dinf = (pos(eps_dinf * nvx - pdx_n) * pos(-eps_dinf * nvx - qv)
             * (1.0 - torch.sign(up_viol)) * (1.0 - torch.sign(lo_viol))
             * pos(nvx - eps_dinf))
-    stats = torch.stack([rp, rp_rel, rd, rd_rel, pinf, dinf, nv, nvx], 1)
-    return x, y, z, stats
+    return torch.stack([rp, rp_rel, rd, rd_rel, pinf, dinf, nv, nvx], 1)
 
 
 def _defaults(x, m, K, wuu_row, dmask, done):

@@ -8,7 +8,11 @@ steps here; the reference quirks the JAX package reproduces (one-step input
 delay, sequential saturation, the in-track estimate swap seen by the
 failsafe, the shared failsafe integrator) are reproduced the same way.
 
-Ported so far: ``synthesis='scipy'`` and ``estimator='ukf'``.
+Ported so far: ``synthesis='scipy'`` and ``estimator='ukf'``, with the
+'eig' or the 'pallas' solve (``settings.solve_mode``). Nothing in the step
+depends on the mode: the solver's inverse state (``ADMMState.minv``) is
+carried and frozen for dead scenarios whatever its shape. The engine lives
+on the CUDA device unless ``build_engine`` is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mpc_arpo_project_tpu.config import SimConditions, MPCParams, FailsafeParams, Debris
-from mpc_arpo_project_tpu.ops.qp_builder import QPDims, build_qp
-from mpc_arpo_project_tpu_torch.ops import admm, constraints, ukf
+from mpc_arpo_project_tpu_torch.config import (
+    Debris, FailsafeParams, MPCParams, SimConditions)
+from mpc_arpo_project_tpu_torch.ops import admm, constraints, host_synthesis, ukf
+from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
 
 
 @dataclass(frozen=True)
@@ -101,10 +106,13 @@ def build_engine(
     dtype=torch.float32,
     synthesis: str = "scipy",
     estimator: str = "ukf",
-    device="cpu",
+    device="cuda",
 ) -> DiscreteEngine:
     """Host-side engine construction: float64 synthesis (scipy), cast to
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device`` (the CUDA device unless the caller asks for the
+    CPU; raises when there is none). The config objects are read by
+    attribute only."""
+    device = admm.resolve_device(device)
     if synthesis != "scipy":
         raise NotImplementedError(
             f"synthesis={synthesis!r} is not ported yet (ROADMAP queue 1, "
@@ -113,16 +121,14 @@ def build_engine(
         raise NotImplementedError(
             f"estimator={estimator!r} is not ported yet (ROADMAP queue 1, "
             "item 12)")
-    from tools import ref_sim
-
     T = sim.time_stp
     dims = QPDims(Nx=mpc.Nx, Nc=mpc.Nc, Nb=mpc.Nb)
-    Ad, Bd = ref_sim.discretize_np(sim.mean_mtn, T, sim.isDeltaV)
-    K, QN, Kpf, Kif, K_total, K_i = ref_sim.synth_gains_np(Ad, Bd, mpc, fail)
+    Ad, Bd = host_synthesis.discretize_np(sim.mean_mtn, T, sim.isDeltaV)
+    K, QN, Kpf, Kif, K_total, K_i = host_synthesis.synth_gains_np(Ad, Bd, mpc, fail)
     static = build_qp(dims, sim, mpc, Ad, Bd, K, QN)
     # equilibrate on the INITIAL constraint matrix, as the reference's OSQP
     # setup does
-    c1_0, c2_0, s0, _, _ = ref_sim.configure_dynamic_np(
+    c1_0, c2_0, s0, _, _ = host_synthesis.configure_dynamic_np(
         sim, debris, np.concatenate([sim.x0, [0.0, 0.0]]))
     prob = admm.prepare_problem(
         static, dims, settings, nominal_coeffs=(c1_0, c2_0, -s0), dtype=dtype,

@@ -33,7 +33,8 @@ def _t(a):
 @pytest.fixture(scope="module")
 def setup():
     p = _build_setup()
-    tp = tadmm.problem_from_numpy(p["prob"], dtype=torch.float64)
+    tp = tadmm.problem_from_numpy(p["prob"], dtype=torch.float64,
+                                 device="cpu")
     coeffs = tuple(_t(c) for c in p["coeffs"])
     # a second, warm-started solve on shifted bounds
     l2 = np.asarray(p["l"]).copy()
@@ -82,7 +83,8 @@ def test_admm_solve_matches_jax_cold(setup, cold):
 def test_admm_solve_matches_jax_warm(setup, cold):
     """Warm start from the JAX package's own state, through
     ``state_from_numpy``: both packages continue from one iterate."""
-    state = tadmm.state_from_numpy(setup["j1"].state, dtype=torch.float64)
+    state = tadmm.state_from_numpy(setup["j1"].state, dtype=torch.float64,
+                                   device="cpu")
     rt = _solve(setup, tadmm.ADMMSettings(**KW), setup["l2"], setup["u2"],
                 state)
     _assert_matches_jax(rt, setup["j2"])
@@ -129,7 +131,7 @@ def test_refresh_capacity_compaction_is_exact(setup, cold):
 
 @pytest.mark.parametrize("kw, err", [
     (dict(solve_mode="chol"), NotImplementedError),
-    (dict(solve_mode="pallas"), NotImplementedError),
+    (dict(solve_mode="pallas", mxu_precision="high"), ValueError),
     (dict(KW, eig_rescue_mode="near"), ValueError),
     (dict(KW, stall_exit_chunks=6, eig_rescue_chunks=6), ValueError),
 ])
@@ -158,7 +160,7 @@ def test_rho_rescue_solves_dual_plateau_capture():
     base = tadmm.ADMMSettings(max_iter=4000, solve_mode="eig", pallas_tile=4,
                               stall_exit_chunks=12, stall_tighten_chunks=24)
     prob = tdisc.build_engine(sim, mpc, fail, debris, settings=base,
-                              dtype=torch.float32).prob
+                              dtype=torch.float32, device="cpu").prob
     sl = lambda a: torch.as_tensor(d[a][rows], dtype=torch.float32)
 
     def run(st):

@@ -1,27 +1,33 @@
-"""The hand-written CUDA chunk kernel against its plain torch twin, on a GPU.
+"""The hand-written CUDA kernels against their plain torch twins, on a GPU.
 
 Imports neither JAX nor the test configuration's JAX setup, so it runs on a
 machine with the card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Elsewhere every test here skips. Chunk inputs are real: the first chunk of
-a warm-started port solve on the ``tests/test_admm_eig.py`` problem (Nx=40,
-B=8, tile 4, all four combos, debris on half the rows, two inactive
-problems), and a chunk of an infeasible solve in which the Farkas
-certificate fires. Tolerance 1e-10 per row in fp64: the kernel and the twin
-run the same arithmetic in another summation order, over 25 iterations.
+Elsewhere every test here skips. Inputs are real. For ``eig_chunk``: the
+first chunk of a warm-started port solve on the ``tests/test_admm_eig.py``
+problem (Nx=40, B=8, tile 4, all four combos, debris on half the rows, two
+inactive problems), and a chunk of an infeasible solve in which the Farkas
+certificate fires. For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
+``newton_schulz_inverse``): the ``tests/test_admm_pallas.py`` problem
+(Nx=40 unpadded, nz=201, m=406, B=8) through ``pallas_inputs``. Tolerance
+1e-10 per row in fp64: each kernel and its twin run the same arithmetic in
+another summation order, over 25 chunk iterations or 45 Newton–Schulz
+steps.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, constraints
+from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
+from mpc_arpo_project_tpu_torch.ops import constraints
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
-from torch_helpers import chunk_inputs, flagship_parts, static_problem
+from torch_helpers import (
+    chunk_inputs, flagship_parts, pallas_inputs, static_problem)
 
 TOL = 1e-10
 pytestmark = pytest.mark.cuda
@@ -34,13 +40,15 @@ def gpu():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def chunks(gpu):
-    """The port's own build of the ``tests/test_admm_eig.py`` problem, in
-    fp64 on the CPU, and two real chunk inputs from it."""
+def _problem(solve_mode):
+    """The port's own build of the Nx=40 problem in fp64 on the CPU
+    ('eig': padded, as ``tests/test_admm_eig.py`` builds it; 'pallas':
+    unpadded, as ``tests/test_admm_pallas.py`` does), with B=8 copies of
+    the bounds at the initial state."""
     static, dims, sim = static_problem(40)
-    settings = admm.ADMMSettings(solve_mode="eig", pallas_tile=4)
-    prob = admm.prepare_problem(static, dims, settings, dtype=torch.float64)
+    settings = admm.ADMMSettings(solve_mode=solve_mode, pallas_tile=4)
+    prob = admm.prepare_problem(static, dims, settings, dtype=torch.float64,
+                                device="cpu")
     t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
     geom = constraints.make_geometry(sim, flagship_parts()[2])
     xe = t(np.concatenate([sim.x0, [0.0, 0.0]]))[None]
@@ -51,10 +59,25 @@ def chunks(gpu):
     leq = t(static.leq)[None]
     l = torch.cat([leq, lineq], 1).expand(B, -1).clone()
     u = torch.cat([leq, uineq], 1).expand(B, -1).clone()
+    return prob, dims, l, u
+
+
+@pytest.fixture(scope="module")
+def chunks(gpu):
+    """Two real ``eig_chunk`` inputs."""
+    prob, dims, l, u = _problem("eig")
+    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
     coeffs = (t([1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0]),
               t([1.0, -1.0, 1.0, -1.0, 1.0, -1.0, 1.0, -1.0]),
               t([0.0, 0.0, 0.0, 0.0, 1.9, -2.4, 0.7, -0.4]))
     return chunk_inputs(prob, dims, coeffs, l, u)
+
+
+@pytest.fixture(scope="module")
+def pallas(gpu):
+    """Real inputs of the three 'pallas' kernels."""
+    prob, _, l, u = _problem("pallas")
+    return pallas_inputs(prob, l, u)
 
 
 def _to(args, kw, device):
@@ -107,3 +130,106 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(gpu, chunks):
     with pytest.raises(ValueError, match="tinv"):
         admm_eig.eig_chunk(*mixed, **kc)
     assert admm_eig.eig_chunk.launches == n0
+
+
+def _rows_within(out, ref, rows, tol):
+    out, ref = out[rows].reshape(int(rows.sum()), -1), ref[rows].reshape(
+        int(rows.sum()), -1)
+    scale = ref.abs().amax(1).clamp(min=1e-300)
+    return bool((((out - ref).abs().amax(1) / scale) <= tol).all())
+
+
+def test_cuda_admm_chunk_matches_twin(gpu, pallas):
+    """fp64 'pallas' chunk kernel against the twin on the CPU: x, y, z and
+    stats 0-3 and 6-7 to 1e-10 per row, pinf/dinf identical, done rows
+    passed through with zero stats, one launch per call."""
+    a, k = pallas["chunk"]
+    ref = admm_pallas.admm_chunk_ref(*a, **k)
+    ac, kc = _to(a, k, gpu)
+    n0 = admm_pallas.admm_chunk.launches
+    out = [o.cpu() for o in admm_pallas.admm_chunk(*ac, **kc)]
+    torch.cuda.synchronize()
+    assert admm_pallas.admm_chunk.launches == n0 + 1
+    live = ~k["done"]
+    assert int(live.sum()) == 6
+    for o, r in zip(out[:3], ref[:3]):
+        assert _rows_within(o, r, live, TOL)
+    for col in (0, 1, 2, 3, 6, 7):
+        torch.testing.assert_close(out[3][live, col], ref[3][live, col],
+                                   rtol=TOL, atol=0.0)
+    assert torch.equal(out[3][:, 4:6], ref[3][:, 4:6])
+    done = k["done"]
+    for o, v in zip(out[:3], a[6:9]):
+        assert torch.equal(o[done], v[done])
+    assert (out[3][done] == 0).all()
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_cuda_ns_fused_matches_twin(gpu, pallas, cold):
+    """fp64 Newton–Schulz refresh kernel against the twin: needy rows to
+    1e-10 per row, residuals to 1e-10; rows without need, one of them
+    +inf and one NaN, pass through bit for bit with residual 0."""
+    X_prev = pallas["X_warm"].clone()
+    need = pallas["need"]
+    X_prev[1] = torch.inf
+    X_prev[4] = torch.nan
+    n_iter = 45 if cold else 3
+    args = (pallas["stack"], pallas["w"], X_prev, need)
+    xr, rr = admm_pallas.ns_fused_ref(*args, n_iter=n_iter, cold=cold)
+    n0 = admm_pallas.ns_fused.launches
+    xk, rk = admm_pallas.ns_fused(*(v.to(gpu) for v in args), n_iter=n_iter,
+                                  cold=cold)
+    xk, rk = xk.cpu(), rk.cpu()
+    torch.cuda.synchronize()
+    assert admm_pallas.ns_fused.launches == n0 + 1
+    assert _rows_within(xk, xr, need, TOL)
+    torch.testing.assert_close(rk, rr, rtol=0.0, atol=TOL)
+    assert torch.equal(xk[~need & ~torch.isnan(X_prev[:, 0, 0])],
+                       X_prev[~need & ~torch.isnan(X_prev[:, 0, 0])])
+    assert torch.isnan(xk[4]).all()
+    assert (rk[~need] == 0).all()
+
+
+def test_cuda_newton_schulz_inverse_matches_twin(gpu, pallas):
+    M = pallas["M"]
+    X0 = admm_pallas.cold_start_inverse(M)
+    xr, rr = admm_pallas.newton_schulz_inverse_ref(M, X0, n_iter=45)
+    n0 = admm_pallas.newton_schulz_inverse.launches
+    xk, rk = admm_pallas.newton_schulz_inverse(M.to(gpu), X0.to(gpu),
+                                               n_iter=45)
+    xk, rk = xk.cpu(), rk.cpu()
+    assert admm_pallas.newton_schulz_inverse.launches == n0 + 1
+    assert _rows_within(xk, xr, torch.ones(M.shape[0], dtype=torch.bool), TOL)
+    torch.testing.assert_close(rk, rr, rtol=0.0, atol=TOL)
+    assert float(rk.max()) < 1e-10
+
+
+def test_cuda_pallas_wrappers_reject_what_the_kernels_do_not_take(gpu,
+                                                                  pallas):
+    """No fallback: fp16, or a tensor left on the CPU, raises at each
+    'pallas' entry, and no launch is counted."""
+    a, k = pallas["chunk"]
+    ac, kc = _to(a, k, gpu)
+    counts = lambda: (admm_pallas.admm_chunk.launches,
+                      admm_pallas.ns_fused.launches,
+                      admm_pallas.newton_schulz_inverse.launches)
+    n0 = counts()
+    half = lambda v: v.half() if torch.is_tensor(v) and v.is_floating_point() else v
+    with pytest.raises(TypeError):
+        admm_pallas.admm_chunk(*map(half, ac),
+                               **{kk: half(v) for kk, v in kc.items()})
+    mixed = list(ac)
+    mixed[0] = a[0]  # minv on the CPU
+    with pytest.raises(ValueError, match="minv"):
+        admm_pallas.admm_chunk(*mixed, **kc)
+    st, w, X, need = (pallas[n].to(gpu) for n in ("stack", "w", "X_warm",
+                                                  "need"))
+    with pytest.raises(TypeError):
+        admm_pallas.ns_fused(st.half(), w.half(), X.half(), need, n_iter=1,
+                             cold=False)
+    with pytest.raises(ValueError, match="stack"):
+        admm_pallas.ns_fused(pallas["stack"], w, X, need, n_iter=1,
+                             cold=False)
+    with pytest.raises(ValueError, match="M"):
+        admm_pallas.newton_schulz_inverse(pallas["M"], X, 1)
+    assert counts() == n0

@@ -32,7 +32,8 @@ def _t(a, dtype=torch.float64):
 @pytest.fixture(scope="module")
 def chunks():
     p = _build_setup()
-    prob = tadmm.problem_from_numpy(p["prob"], dtype=torch.float64)
+    prob = tadmm.problem_from_numpy(p["prob"], dtype=torch.float64,
+                                   device="cpu")
     coeffs = tuple(_t(c) for c in p["coeffs"])
     inputs = chunk_inputs(prob, p["dims"], coeffs, _t(p["l"]), _t(p["u"]))
     out = {}
@@ -110,7 +111,8 @@ def refresh_inputs():
     need = np.array([True, True, False, True, True, False, True, True])
     return dict(combo_row=combo_row, scal=scal, dg=dg, need=need,
                 X0=np.zeros((B, K, K)), jp=jp,
-                tp=tadmm.problem_from_numpy(jp, dtype=torch.float64))
+                tp=tadmm.problem_from_numpy(jp, dtype=torch.float64,
+                                           device="cpu"))
 
 
 def _refresh_both(ri, X_prev, fn_kw, safe):

@@ -1,5 +1,7 @@
-"""The PyTorch port must never import JAX: importing the package and every
-ported module in a fresh interpreter leaves ``jax`` out of ``sys.modules``."""
+"""The PyTorch port must never import JAX nor anything of the JAX package:
+importing the package and every ported module in a fresh interpreter leaves
+``jax``, ``mpc_arpo_project_tpu`` (and its submodules) and the JAX
+package's ``tools`` out of ``sys.modules``."""
 
 import os
 import subprocess
@@ -12,11 +14,15 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import mpc_arpo_project_tpu_torch\n"
-        "from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, "
-        "constraints, ukf\n"
+        "from mpc_arpo_project_tpu_torch import config\n"
+        "from mpc_arpo_project_tpu_torch.ops import _build, admm, admm_eig, "
+        "admm_pallas, constraints, host_synthesis, qp_builder, ukf\n"
         "from mpc_arpo_project_tpu_torch.rollout import discrete\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m.startswith('jaxlib') or m == 'flax')\n"
+        "or m.startswith('jax.') or m.startswith('jaxlib') or m == 'flax' "
+        "or m == 'mpc_arpo_project_tpu' "
+        "or m.startswith('mpc_arpo_project_tpu.') "
+        "or m == 'tools' or m.startswith('tools.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -106,7 +106,7 @@ def _arm(noise, B, seed, T_final):
         jeng, jdisc.noise_sequence_from_draws(jeng, draws)))
     tst = tadmm.ADMMSettings(max_iter=500, solve_mode="eig", pallas_tile=4)
     teng = tdisc.build_engine(sim, mpc, fail, debris, settings=tst,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     tout = tdisc.rollout(teng, tdisc.noise_sequence_from_draws(teng, draws))
     return jout, tout
 
@@ -143,7 +143,7 @@ def test_fp32_rollout_smoke():
     st = tadmm.ADMMSettings(max_iter=1000, solve_mode="eig", pallas_tile=8,
                             stall_exit_chunks=12, stall_tighten_chunks=24)
     eng = tdisc.build_engine(sim, mpc, fail, debris, settings=st,
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     B = 8
     gen = torch.Generator().manual_seed(0)
     ns = tdisc.make_noise_sequence(eng, gen, B)

@@ -1,5 +1,6 @@
-"""Shared pieces of the PyTorch port's tests. Imports no JAX, so the tests
-that run on a machine with the card and without JAX can use it too.
+"""Shared pieces of the PyTorch port's tests. Imports no JAX and nothing of
+the JAX package, so the tests that run on a machine with the card and
+without JAX can use it too.
 
 * ``one_torch_thread``: an autouse, module-scoped fixture. A test module
   imports it to run PyTorch on one intra-op thread. The suite runs in
@@ -9,9 +10,10 @@ that run on a machine with the card and without JAX can use it too.
   another: three files that take 106 s on one thread each took over 15
   minutes together with the default.
 * The flagship-family problem (Nx=40 or 50, radial approach, debris box at
-  (40, 0)) built from the JAX-free config and QP builder.
-* ``capture_chunks`` and ``chunk_inputs``: real ``eig_chunk`` inputs taken
-  from port solves on the CPU.
+  (40, 0)) built from the port's own config and QP builder.
+* ``capture_chunks``, ``chunk_inputs`` and ``pallas_inputs``: real inputs
+  of the chunk kernels (``eig_chunk``, ``admm_chunk``) and of the
+  Newton–Schulz refresh, taken from port solves on the CPU.
 """
 
 import types
@@ -20,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_arpo_project_tpu.config import (
+from mpc_arpo_project_tpu_torch.config import (
     Debris, FailsafeParams, MPCParams, SimConditions)
-from mpc_arpo_project_tpu.ops.qp_builder import QPDims, build_qp
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
-from tools.ref_sim import discretize_np, synth_gains_np
+from mpc_arpo_project_tpu_torch.ops.host_synthesis import (
+    discretize_np, synth_gains_np)
+from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,21 +73,29 @@ def static_problem(Nx):
 
 
 def capture_chunks(prob, coeffs, l, u, state, settings, active=None):
-    """Every ``eig_chunk`` call of one port solve: (args, kwargs) clones."""
+    """Every chunk-kernel call of one port solve (``eig_chunk`` in 'eig'
+    mode, ``admm_chunk`` in 'pallas' mode): (args, kwargs) clones."""
+    attr, name = (("admm_eig", "eig_chunk") if settings.solve_mode == "eig"
+                  else ("admm_pallas", "admm_chunk"))
+    mod = getattr(admm, attr)
+    real = getattr(mod, name)
     calls = []
 
     def rec(*a, **k):
         calls.append((tuple(v.clone() if torch.is_tensor(v) else v for v in a),
                       {kk: v.clone() if torch.is_tensor(v) else v
                        for kk, v in k.items()}))
-        return admm_eig.eig_chunk(*a, **k)
+        return real(*a, **k)
 
-    admm.admm_eig = types.SimpleNamespace(
-        eig_chunk=rec, tinv_safe_refresh=admm_eig.tinv_safe_refresh)
+    # the solver's view of the kernel module records; the module itself
+    # stays as it is (its entries count their launches on themselves)
+    view = types.SimpleNamespace(**vars(mod))
+    setattr(view, name, rec)
+    setattr(admm, attr, view)
     try:
         admm.admm_solve(prob, coeffs, l, u, state, settings, active=active)
     finally:
-        admm.admm_eig = admm_eig
+        setattr(admm, attr, mod)
     return calls
 
 
@@ -110,3 +121,39 @@ def chunk_inputs(prob, dims, coeffs, l, u):
     infeas = next(c for c in calls
                   if (admm_eig.eig_chunk_ref(*c[0], **c[1])[3][:, 4] > 0).any())
     return {"warm": warm, "infeasible": infeas}
+
+
+def pallas_inputs(prob, l, u):
+    """Real inputs of the 'pallas' kernels on the B=8 problem ``prob`` (fp64,
+    CPU): ``chunk``, the second chunk of a solve with all four funnel-sign
+    combos, debris slopes s != 0 and two inactive problems; ``stack``,
+    ``w``, ``M``, ``X_warm`` and ``need`` for the Newton–Schulz refresh
+    (weights over mixed combos and rho scales, the true M of each problem,
+    and the exact inverse at a 3% rho drift as the warm start)."""
+    B = l.shape[0]
+    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
+    coeffs = (t([1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0]),
+              t([1.0, -1.0, 1.0, -1.0, 1.0, -1.0, 1.0, -1.0]),
+              t([0.0, 0.4, -0.3, 0.7, 1.9, -2.4, 0.7, -0.4]))
+    active = torch.tensor([True, False, True, True, True, False, True, True])
+    st = admm.ADMMSettings(solve_mode="pallas", max_iter=50)
+    chunk = capture_chunks(prob, coeffs, l, u, admm.init_state(prob, B, st),
+                           st, active=active)[1]
+    rng = np.random.default_rng(4)
+    c1 = rng.choice([-1.0, 1.0], B)
+    c2 = rng.choice([-1.0, 1.0], B)
+    s = rng.uniform(-2.0, 2.0, B)
+    r = rng.uniform(0.5, 2.0, B)
+    nz = prob.Pbar.shape[0]
+    sigma = 1e-6
+    stack = torch.cat([(prob.Pbar + sigma * torch.eye(nz, dtype=torch.float64))
+                       [None], prob.G[None], prob.Fstack], 0)
+    w = np.stack([np.ones(B), r, r * c1, r * c2, r * c1 * c2, r * s,
+                  r * s * s, np.zeros(B)], 1)
+    ns_coeffs = (t(c1), t(c2), t(s))
+    M = admm._build_M(prob, ns_coeffs, t(r), sigma)
+    X_warm = torch.linalg.inv(admm._build_M(prob, ns_coeffs, t(1.03 * r),
+                                            sigma)).contiguous()
+    need = torch.tensor([True, False, True, True, False, True, True, False])
+    return dict(chunk=chunk, stack=stack, w=t(w), M=M, X_warm=X_warm,
+                need=need, coeffs=ns_coeffs, r=r, sigma=sigma)
