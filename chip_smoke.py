@@ -7,7 +7,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 
 1. device: the card's name and power limit, torch and CUDA versions; fp32
    matmuls are pinned to full precision (no TF32);
-2. build: compiles the three CUDA libraries from ``csrc/`` with nvcc, all at
+2. build: compiles the four CUDA libraries from ``csrc/`` with nvcc, all at
    once (one nvcc per source), and logs ptxas' register and shared-memory
    lines;
 3. kernels against plain, at flagship shapes (Nx=50: nz=256, m=512, B=1024)
@@ -18,19 +18,26 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    - ``admm_chunk``, ``ns_fused`` (warm and cold, on a need mask that
      includes rows poisoned with inf and NaN) and ``newton_schulz_inverse``
      (on the per-problem M of ``_build_M``) ('pallas' engine);
-4. main path 1: the flagship closed loop (radial, noisy, offset-free,
+4. the chunk-parts probe (``tools/kernel_probe.py`` of the port) at its
+   flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32):
+   each of its six kernels against its twin on unit-gain inputs (launch
+   counted), then timed as the probe times it, with its bound and useful
+   TF/s;
+5. main path 1: the flagship closed loop (radial, noisy, offset-free,
    debris; 'eig' solve, UKF) for 20 control steps at B=1024, fp32;
-5. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
+6. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
    repository's bench configuration with ``BENCH_SOLVE_MODE=pallas``);
-   each main path reports its kernels' launch counts (set to 0 just before
-   the path, read just after), alive-solves/s, the status mix, the mean
-   ADMM iterations per step, a per-step split from CUDA events and the peak
-   device memory;
-6. small agreement, for each solve mode: 4 fp64 control steps at B=8 on the
-   card (kernels) and on the CPU (twins) must give the same statuses,
-   controller codes, termination and ``done_iters``, and trajectories
-   within 1e-6;
-7. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
+7. main path 3: the same closed loop in the default ``solve_mode='chol'``
+   (the fp64 oracle mode) in fp64; each main path reports every kernel's
+   launch count (set to 0 just before the path, read just after),
+   alive-solves/s, the status mix, the mean ADMM iterations per step, a
+   per-step split from CUDA events and the peak device memory;
+8. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+   on the CPU (twins) must give the same statuses, controller codes,
+   termination and ``done_iters``, and trajectories within 1e-6; for
+   'eig', 'pallas' and 'chol', and for 'chol' with ``estimator='kf'`` and
+   with ``synthesis='torch'``;
+9. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
 
 Prints the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
@@ -43,7 +50,6 @@ from __future__ import annotations
 import contextlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 import types
@@ -61,10 +67,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def flagship(T_final, device, dtype, solve_mode="eig"):
+def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
     """The flagship scenario and the production solver profile (the
     repository's bench configuration at its defaults, with
-    ``BENCH_SOLVE_MODE=solve_mode``)."""
+    ``BENCH_SOLVE_MODE=solve_mode``); ``engine_kw`` (``estimator``,
+    ``synthesis``) goes to ``build_engine``."""
     from mpc_arpo_project_tpu_torch import (
         Debris, FailsafeParams, MPCParams, Noise, SimConditions)
     from mpc_arpo_project_tpu_torch.ops import admm
@@ -92,18 +99,29 @@ def flagship(T_final, device, dtype, solve_mode="eig"):
         eig_refresh_cap_div=32, eig_deb_equil_smax=32.0, eig_warm_iters=3,
         eig_cold_iters=30, eig_compact_chunks=(2, 4, 8, 16, 24))
     return discrete.build_engine(sim, mpc, fail, debris, settings=settings,
-                                 dtype=dtype, device=device)
+                                 dtype=dtype, device=device, **engine_kw)
 
 
 @contextlib.contextmanager
 def _solver_calls(mode, **fns):
     """Make the solver (``ops.admm``) call ``fns`` in place of the functions
     of the same names in its kernel module (``admm_eig`` or
-    ``admm_pallas``, by ``mode``) for the duration of the block. The kernel
-    module itself is left as it is: its entries count their launches on
+    ``admm_pallas``, by ``mode``; for 'chol', its own ``_chol_factor`` and
+    ``_chol_solve``) for the duration of the block. The kernel module
+    itself is left as it is: its entries count their launches on
     themselves."""
     from mpc_arpo_project_tpu_torch.ops import admm
 
+    if mode == "chol":
+        saved = {n: getattr(admm, n) for n in fns}
+        for n, f in fns.items():
+            setattr(admm, n, f)
+        try:
+            yield
+        finally:
+            for n, f in saved.items():
+                setattr(admm, n, f)
+        return
     attr = "admm_eig" if mode == "eig" else "admm_pallas"
     mod = getattr(admm, attr)
     view = types.SimpleNamespace(**vars(mod))
@@ -409,6 +427,22 @@ def admm_chunk_bound(args, kw, outs):
     return _bound(flops, _bytes(list(args) + list(outs), live / B, B))
 
 
+def probe_bound(name, inputs, n_it):
+    """One probe kernel: the operations it executes (the block-diagonal
+    variant's bt-fold zero MACs and the bf16 variant's two limb products
+    included), each input read once and the output written once."""
+    from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
+
+    x = inputs["x"]
+    B, nz = x.shape
+    m, bt = inputs["a0"].shape[0], inputs["bt"]
+    macs = dict(matvec_pair=2 * m * nz, minv_rowvec=nz * nz,
+                minv_lhs=nz * nz, minv_bf16=2 * nz * nz,
+                minv_blockdiag=bt * nz * nz, stack7=7 * nz * nz)[name]
+    operand = inputs[kp.variants(nz, m)[name].operand]
+    return _bound(2.0 * macs * B * n_it, _bytes([x, operand, x], 1.0, B))
+
+
 def ns_bound(n, rows, n_iter, tensors, B, stack=True):
     """Newton–Schulz on ``rows`` problems: 2 n_iter + 1 products of n^3
     MACs each (the iteration and the residual), plus building M from the
@@ -591,29 +625,83 @@ def check_pallas_kernels(engine, B):
     return [chunk, fused, inverse]
 
 
+def check_probe(B=1024, bt=32, n_it=25):
+    """The six chunk-parts probe kernels at the probe's flagship shapes:
+    each against its twin (unit-gain inputs, per-row tolerance 1e-5, launch
+    counted; ``kernel_probe.check_against_twin``), then timed as the probe
+    times it on the original's inputs, beside its twin and its bound.
+    Returns the probe's JSON entry (without launches)."""
+    import torch
+    from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
+
+    unit = kp.make_inputs(B, bt, unit_gain=True)
+    orig = kp.make_inputs(B, bt)
+    nz, m = orig["x"].shape[1], orig["a0"].shape[0]
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    by = {"operations": 0.0, "bytes": 0.0}
+    for name, v in kp.variants(nz, m).items():
+        err = kp.check_against_twin(name, unit, n_it)
+        ms = kp.time_ms(name, orig, n_it)
+        plain_ms = kp.time_ms(name, orig, n_it, twin=True)
+        bound_ms, bound_by = probe_bound(name, orig, n_it)
+        tf = 2 * v.macs * B * n_it / (ms * 1e-3) / 1e12
+        stream = ""
+        if v.operand in ("minv", "mflat"):
+            floor = orig["minv"].numel() * 4 * n_it / HBM_BYTES_S * 1e3
+            stream = f", Minv streamed every iteration {floor:.3f} ms"
+        log(f"  probe {v.label}: {ms:8.3f} ms/chunk {ms / n_it * 1e3:8.1f} "
+            f"us/iter useful {tf:6.2f} TF/s; twin {plain_ms:.3f} ms; bound "
+            f"{bound_ms:.3f} ms ({bound_by}){stream}; vs twin "
+            + json.dumps(err))
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += bound_ms
+        total["max_abs_err"] = max(total["max_abs_err"], err["max_abs_err"])
+        by[bound_by] += bound_ms
+    log(f"probe, six kernels one launch each (B={B}, bt={bt}, {n_it} "
+        f"iterations, fp32): kernels {total['ms']:.3f} ms, twins "
+        f"{total['plain_ms']:.3f} ms, bounds {total['bound_ms']:.3f} ms "
+        "(ms per chunk: best of 3 runs of 10 launches, CUDA events)")
+    return dict(name="kernel_probe", route="cuda",
+                source="mpc_arpo_project_tpu_torch/csrc/kernel_probe.cu",
+                replaces="tools/kernel_probe.py:142",
+                bound_by=max(by, key=by.get), library_ms=None, **total)
+
+
 def main_path(engine, B, seed):
     """One flagship closed loop on the card, in the engine's solve mode:
     every kernel count is set to 0 just before and read just after; returns
     the counts and the numbers to report."""
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
+    from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
     from mpc_arpo_project_tpu_torch.rollout import discrete
+    from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
     mode = engine.settings.solve_mode
+    # (span label, function timed by CUDA events) for the per-step split
     if mode == "eig":
-        chunk_name, refresh_name = "eig_chunk", "tinv_safe_refresh"
-        path_kernels = ("eig_chunk",)
-    else:
-        chunk_name, refresh_name = "admm_chunk", "masked_safe_refresh"
+        timed_fns = (("chunk_kernel", "eig_chunk"),
+                     ("tinv_safe_refresh", "tinv_safe_refresh"))
+        path_kernels, rest_name = ("eig_chunk",), "host_syncs_and_glue"
+    elif mode == "pallas":
+        timed_fns = (("chunk_kernel", "admm_chunk"),
+                     ("masked_safe_refresh", "masked_safe_refresh"))
         path_kernels = ("admm_chunk", "ns_fused")
-    mod = _solver_module(mode)
+        rest_name = "host_syncs_and_glue"
+    else:
+        timed_fns = (("factorizations", "_chol_factor"),
+                     ("triangular_solves", "_chol_solve"))
+        path_kernels, rest_name = (), "matvecs_certificates_and_glue"
+    mod = admm if mode == "chol" else _solver_module(mode)
     counters = dict(eig_chunk=admm_eig.eig_chunk,
                     admm_chunk=admm_pallas.admm_chunk,
                     ns_fused=admm_pallas.ns_fused,
-                    ns_inverse=admm_pallas.newton_schulz_inverse)
+                    ns_inverse=admm_pallas.newton_schulz_inverse,
+                    **{f"probe {n}": v.entry
+                       for n, v in kp.variants().items()})
     gen = torch.Generator(device=engine.device).manual_seed(seed)
     noise = discrete.make_noise_sequence(engine, gen, B)
-    spans = {chunk_name: [], refresh_name: []}
+    spans = {fn: [] for _, fn in timed_fns}
 
     def timed(name, fn):
         def call(*a, **k):
@@ -628,8 +716,8 @@ def main_path(engine, B, seed):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _solver_calls(mode, **{n: timed(n, getattr(mod, n))
-                                for n in (chunk_name, refresh_name)}):
+    with _solver_calls(mode, **{fn: timed(fn, getattr(mod, fn))
+                                for _, fn in timed_fns}):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -639,6 +727,8 @@ def main_path(engine, B, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
+    launches["kernel_probe"] = sum(launches.pop(n) for n in list(launches)
+                                   if n.startswith("probe "))
     ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in spans.items()}
 
     T = engine.nsim
@@ -665,31 +755,35 @@ def main_path(engine, B, seed):
     mix = {v: int((status[alive] == k).sum()) / max(n_alive, 1)
            for k, v in names.items()}
     wall_ms = wall * 1000.0
-    rest = wall_ms - ms[chunk_name] - ms[refresh_name]
+    split = {"total": wall_ms / T}
+    split.update({label: ms[fn] / T for label, fn in timed_fns})
+    split[rest_name] = (wall_ms - sum(ms.values())) / T
     return launches, dict(
-        solve_mode=mode, steps=T, batch=B, wall_s=wall, alive_steps=n_alive,
+        solve_mode=mode, dtype=str(engine.dtype)[6:], steps=T, batch=B,
+        wall_s=wall, alive_steps=n_alive,
         alive_solves_per_s=n_alive / wall, status_mix_alive=mix,
         mean_admm_iters_per_step=float(out.iters.float().mean()),
         success_rate=float(out.success.float().mean()),
-        per_step_ms={"total": wall_ms / T, "chunk_kernel": ms[chunk_name] / T,
-                     refresh_name: ms[refresh_name] / T,
-                     "host_syncs_and_glue": rest / T},
-        launches={n: launches[n] for n in path_kernels},
+        per_step_ms=split,
+        timed_calls_per_step={label: len(spans[fn]) / T
+                              for label, fn in timed_fns},
+        launches=launches,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
     )
 
 
-def small_agreement(seed, solve_mode):
+def small_agreement(seed, solve_mode, **engine_kw):
     """4 fp64 control steps at B=8: the card (kernels) against the CPU
-    (twins)."""
+    (twins); ``engine_kw`` goes to ``build_engine``."""
     import torch
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
     outs = []
     rng = np.random.default_rng(seed)
     draws = None
+    label = " ".join([solve_mode] + [f"{k}={v}" for k, v in engine_kw.items()])
     for device in ("cuda", "cpu"):
-        eng = flagship(2.0, device, torch.float64, solve_mode)
+        eng = flagship(2.0, device, torch.float64, solve_mode, **engine_kw)
         if draws is None:
             draws = rng.standard_normal((eng.nsim // eng.noise_rep + 2, 8, 4))
         ns = discrete.noise_sequence_from_draws(eng, draws)
@@ -697,14 +791,14 @@ def small_agreement(seed, solve_mode):
     g, c = outs
     for name in ("status", "ctrl_seq", "i_term", "done_iters"):
         if not torch.equal(getattr(g, name).cpu(), getattr(c, name)):
-            raise AssertionError(f"small agreement ({solve_mode}): {name} "
+            raise AssertionError(f"small agreement ({label}): {name} "
                                  f"differs\n{getattr(g, name).cpu()}\n"
                                  f"{getattr(c, name)}")
     dx = float((g.x_true.cpu() - c.x_true).abs().max())
     if dx > 1e-6:
-        raise AssertionError(f"small agreement ({solve_mode}): x_true differs "
+        raise AssertionError(f"small agreement ({label}): x_true differs "
                              f"by {dx}")
-    log(f"  [{solve_mode}] 4 steps, B=8, fp64: statuses, controller codes, "
+    log(f"  [{label}] 4 steps, B=8, fp64: statuses, controller codes, "
         f"termination and done_iters equal; max |x_true diff| = {dx:.3e}")
 
 
@@ -722,13 +816,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mpc_arpo_project_tpu_torch.ops import _build, admm_eig, admm_pallas
+    from mpc_arpo_project_tpu_torch.tools import kernel_probe
 
     t_start = time.perf_counter()
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(kernel_probe.card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -740,7 +832,8 @@ def main() -> int:
     # 2. build: one nvcc per library, all started together
     t0 = time.perf_counter()
     libs = {"eig_chunk": admm_eig._lib, "admm_chunk": admm_pallas._chunk_lib,
-            "ns_inverse": admm_pallas._ns_lib}
+            "ns_inverse": admm_pallas._ns_lib,
+            "kernel_probe": kernel_probe._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(f) for f in libs.values()]:
             fut.result()
@@ -766,20 +859,29 @@ def main() -> int:
     entries += check_pallas_kernels(pal_engine, B)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
-    # 4-5. the main paths
+    # 4. the chunk-parts probe
+    entries.append(check_probe())
+    log(f"probe done at {time.perf_counter() - t_start:.1f} s")
+
+    # 5-7. the main paths; a kernel's launches are those of the paths that
+    # run it (the probe runs on none of them)
+    chol_engine = flagship(10.0, "cuda", torch.float64, "chol")
     launches = {}
-    for engine, seed in ((eig_engine, 2), (pal_engine, 2)):
+    for engine, seed in ((eig_engine, 2), (pal_engine, 2), (chol_engine, 2)):
         counts, rep = main_path(engine, B, seed)
         log(f"main path ({engine.settings.solve_mode}): " + json.dumps(rep))
-        for name in rep["launches"]:
-            launches[name] = counts[name]
-    log(f"main paths done at {time.perf_counter() - t_start:.1f} s")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
-    # 6. small end-to-end agreement, card against CPU
+    # 8. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(4, "pallas")
+    small_agreement(5, "chol")
+    small_agreement(6, "chol", estimator="kf")
+    small_agreement(7, "chol", synthesis="torch")
 
-    # 7. import check
+    # 9. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")

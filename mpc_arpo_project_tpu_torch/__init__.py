@@ -8,11 +8,14 @@ reference's JAX-free modules it keeps as its own copies (``config``,
 ``ops.qp_builder``, ``ops.host_synthesis``).
 
 Ported so far: the discrete closed loop (``rollout.discrete``) with the
-'eig' solve (``ops.admm``, ``ops.admm_eig`` and its CUDA chunk kernel) and
-the 'pallas' solve (``ops.admm``, ``ops.admm_pallas`` and its CUDA chunk and
-Newton–Schulz kernels), the UKF (``ops.ukf``) and the dynamic constraints
-(``ops.constraints``). Entry points run on the CUDA device unless the caller
-passes ``device="cpu"``.
+'chol' solve (``ops.admm``: batched Cholesky, the default), the 'eig' solve
+(``ops.admm_eig`` and its CUDA chunk kernel) and the 'pallas' solve
+(``ops.admm_pallas`` and its CUDA chunk and Newton–Schulz kernels), the UKF
+(``ops.ukf``) and the KF (``ops.kalman``), the synthesis (``ops.riccati``),
+the CW model (``models.cw``), the dynamic constraints (``ops.constraints``)
+and the chunk-parts timing probe (``tools.kernel_probe`` and its CUDA
+kernels). Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

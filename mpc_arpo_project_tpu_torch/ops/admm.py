@@ -1,18 +1,20 @@
-"""Batched OSQP-style ADMM QP solver, 'eig' and 'pallas' solve modes, in
-PyTorch.
+"""Batched OSQP-style ADMM QP solver, in PyTorch: the 'chol', 'eig' and
+'pallas' solve modes.
 
 Counterpart of ``mpc_arpo_project_tpu/ops/admm.py``: the same settings, the
-same problem data and the same iteration. 'eig' runs the per-iteration work
-in the fused chunk of ``ops.admm_eig``; 'pallas' in the fused chunk and the
-Newton–Schulz inverse maintenance of ``ops.admm_pallas`` (each a
-hand-written CUDA kernel on the GPU, its plain torch twin on the CPU). The
-rationale behind each setting and each piece of solver machinery is
-documented at its definition in the JAX package; this module keeps the
-names so each piece is found there at once.
+same problem data and the same iteration. 'chol' (the default, the fp64
+oracle mode) factors each problem's normal matrix with a batched Cholesky
+and runs every iteration in plain torch, as the JAX package runs it in
+XLA; 'eig' runs the per-iteration work in the fused chunk of
+``ops.admm_eig``; 'pallas' in the fused chunk and the Newton–Schulz inverse
+maintenance of ``ops.admm_pallas`` (each a hand-written CUDA kernel on the
+GPU, its plain torch twin on the CPU). The rationale behind each setting
+and each piece of solver machinery is documented at its definition in the
+JAX package; this module keeps the names so each piece is found there at
+once.
 
 What differs from the JAX package:
 
-* ``solve_mode='chol'`` is not ported and raises;
 * the ``lax.while_loop`` chunk loops are Python loops with one host read per
   chunk (the all-done flag or live count, read together with the refresh
   flag), and the ``lax.cond`` refresh branches are Python ``if``s on host
@@ -497,10 +499,7 @@ def admm_solve(
     from ``state``; ``l``/``u`` are UNscaled (B, m) bounds and ``active`` an
     optional (B,) mask of problems to solve (the rest stay frozen, UNSOLVED).
     Same contract as the JAX package's ``admm_solve``."""
-    if settings.solve_mode == "chol":
-        raise NotImplementedError(
-            "solve_mode='chol' is not ported yet (ROADMAP queue 1, item 7)")
-    if settings.solve_mode not in ("eig", "pallas"):
+    if settings.solve_mode not in ("chol", "eig", "pallas"):
         raise ValueError(f"unknown solve_mode {settings.solve_mode!r}")
     B = l.shape[0]
     if qbar is None:
@@ -517,7 +516,185 @@ def admm_solve(
     if settings.solve_mode == "pallas":
         return _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar,
                              active)
-    return _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active)
+    if settings.solve_mode == "eig":
+        return _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar,
+                          active)
+    return _solve_chol(prob, coeffs, lbar, ubar, state, settings, qbar, active)
+
+
+def _chol_factor(prob: ADMMProblem, coeffs, rho_scale, sigma):
+    """Batched Cholesky factor of M_k. A row whose M is not positive
+    definite gets a NaN factor, as ``jnp.linalg.cholesky`` returns, so that
+    it runs to MAX_ITER as in the JAX package (``cholesky_ex`` neither
+    raises nor syncs)."""
+    L, info = torch.linalg.cholesky_ex(_build_M(prob, coeffs, rho_scale, sigma))
+    return torch.where((info != 0)[:, None, None], torch.nan, L)
+
+
+def _chol_solve(L, rhs):
+    """M^{-1} rhs by the two batched triangular solves with the factor."""
+    ylow = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, ylow, upper=True)[..., 0]
+
+
+def _solve_chol(prob, coeffs, lbar, ubar, state, settings, qbar, active):
+    """The 'chol' solve: the XLA branch of the JAX package's
+    ``_admm_solve_impl``, step for step. Every problem runs every iteration
+    of a check chunk (done ones too; their iterates are frozen after it);
+    the factor is rebuilt only in a chunk where some row's adaptive-rho
+    trigger fires. One host read per chunk: the all-done flag, with the
+    trigger flag on adaptive-rho chunks."""
+    dt = prob.Pbar.dtype
+    dev = prob.Pbar.device
+    B = lbar.shape[0]
+    sigma = float(settings.sigma)
+    alpha = float(settings.alpha)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    cinv = 1.0 / prob.c
+    eps_pinf, eps_dinf = settings.eps_pinf, settings.eps_dinf
+    u_fin, l_fin = torch.isfinite(ubar), torch.isfinite(lbar)
+
+    def residuals(x, y, z):
+        Ax = _matvec_A(prob, coeffs, x)
+        rp = (prob.Einv * (Ax - z)).abs().amax(1)
+        rp_rel = torch.maximum((prob.Einv * Ax).abs().amax(1),
+                               (prob.Einv * z).abs().amax(1))
+        Px = x @ prob.Pbar
+        Aty = _matvec_AT(prob, coeffs, y)
+        rd = cinv * (prob.Dinv * (Px + qbar + Aty)).abs().amax(1)
+        rd_rel = cinv * torch.maximum(
+            (prob.Dinv * Px).abs().amax(1),
+            torch.maximum((prob.Dinv * Aty).abs().amax(1),
+                          (prob.Dinv * qbar).abs().amax(1)))
+        return rp, rp_rel, rd, rd_rel
+
+    def prim_infeas(dy):
+        """Farkas certificate of the chunk's accumulated dy, in scaled
+        space (see the JAX package's ``prim_infeas``)."""
+        v = torch.where(~u_fin & ~l_fin, 0.0, dy)
+        v = torch.where(~u_fin & l_fin, torch.minimum(v, zero), v)
+        v = torch.where(~l_fin & u_fin, torch.maximum(v, zero), v)
+        nv = v.abs().amax(1)
+        t1 = _matvec_AT(prob, coeffs, v).abs().amax(1) <= eps_pinf * nv
+        vp = torch.maximum(v, zero)
+        vm = torch.minimum(v, zero)
+        sup = ((torch.where(vp > 0, ubar, 0.0) * vp).sum(1)
+               + (torch.where(vm < 0, lbar, 0.0) * vm).sum(1))
+        thresh = max(eps_pinf, settings.pinf_support_margin)
+        t2 = (sup <= -thresh * nv) & torch.isfinite(sup)
+        return t1 & t2 & (nv > eps_pinf)
+
+    def dual_infeas(dx):
+        """Unboundedness certificate of the chunk's accumulated dx."""
+        nv = dx.abs().amax(1)
+        t1 = (dx @ prob.Pbar).abs().amax(1) <= eps_dinf * nv
+        t2 = (qbar * dx).sum(1) <= -eps_dinf * nv
+        Av = _matvec_A(prob, coeffs, dx)
+        eps = eps_dinf * nv[:, None]
+        up_ok = torch.where(u_fin, Av <= eps, True).all(1)
+        lo_ok = torch.where(l_fin, Av >= -eps, True).all(1)
+        return t1 & t2 & up_ok & lo_ok & (nv > eps_dinf)
+
+    n_checks = settings.max_iter // settings.check_every
+    adapt_stride = max(1, settings.adaptive_rho_interval // settings.check_every)
+    rho_lo = RHO_MIN / settings.rho_bar
+    rho_hi = RHO_MAX / (settings.rho_bar * RHO_EQ_SCALE)
+
+    x, y, z = state.xbar, state.ybar, state.zbar
+    rho_scale = state.rho_scale
+    L = _chol_factor(prob, coeffs, rho_scale, sigma)
+    rp = rd = best_rp = best_rd = torch.full((B,), torch.inf, dtype=dt,
+                                             device=dev)
+    tp = td = torch.zeros((B,), dtype=dt, device=dev)
+    done = ~active
+    status = torch.zeros((B,), dtype=torch.int32, device=dev)
+    last_prog = torch.zeros((B,), dtype=torch.int64, device=dev)
+    done_chunk = torch.zeros((B,), dtype=torch.int64, device=dev)
+    chunk = 0
+    all_done = bool(done.all())
+    while not all_done and chunk < n_checks:
+        nc = chunk + 1
+        done_in = done
+        rho = rho_scale[:, None] * prob.rho_vec
+        xi, yi, zi = x, y, z
+        for _ in range(settings.check_every):
+            rhs = sigma * xi - qbar + _matvec_AT(prob, coeffs, rho * zi - yi)
+            xt = _chol_solve(L, rhs)
+            zt = _matvec_A(prob, coeffs, xt)
+            z_tmp = alpha * zt + (1 - alpha) * zi
+            z_n = torch.minimum(torch.maximum(z_tmp + yi / rho, lbar), ubar)
+            yi = yi + rho * (z_tmp - z_n)
+            xi = alpha * xt + (1 - alpha) * xi
+            zi = z_n
+        pinf = prim_infeas(yi - y)
+        dinf = dual_infeas(xi - x)
+        rp_n, rp_rel, rd_n, rd_rel = residuals(xi, yi, zi)
+        # done problems keep the residuals they finished at
+        rp = torch.where(done, rp, rp_n)
+        rd = torch.where(done, rd, rd_n)
+        tp = torch.where(done, tp, settings.eps_abs + settings.eps_rel * rp_rel)
+        td = torch.where(done, td, settings.eps_abs + settings.eps_rel * rd_rel)
+        conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
+                & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
+        new_status = torch.where(
+            conv, SOLVED,
+            torch.where(pinf, PRIMAL_INFEASIBLE,
+                        torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
+        ).to(torch.int32)
+        status = torch.where(done, status, new_status)
+        keep = done[:, None]
+        x = torch.where(keep, x, xi)
+        y = torch.where(keep, y, yi)
+        z = torch.where(keep, z, zi)
+        done = done | conv | pinf | dinf
+
+        if settings.stall_exit_chunks:
+            thr = (settings.stall_improve2 if nc >= settings.stall_tighten_chunks
+                   else settings.stall_improve)
+            improved = (rp <= thr * best_rp) | (rd <= thr * best_rd)
+            last_prog = last_prog.masked_fill(done | improved, nc)
+            stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
+            status = status.masked_fill(stalled, MAX_ITER)
+            done = done | stalled
+        best_rp = torch.minimum(best_rp, rp)
+        best_rd = torch.minimum(best_rd, rd)
+
+        if settings.adaptive_rho and nc % adapt_stride == 0:
+            num = rp / rp_rel.clamp(min=1e-10)
+            den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
+            ratio = torch.sqrt(num / den)
+            tol = settings.adaptive_rho_tol
+            trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
+            new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
+            new_scale = new_scale.clamp(rho_lo, rho_hi)
+            any_trig, all_done = torch.stack([trig.any(), done.all()]).tolist()
+            if any_trig:
+                L = _chol_factor(prob, coeffs, new_scale, sigma)
+            rho_scale = new_scale
+        else:
+            if settings.adaptive_rho:
+                # off-stride chunks keep the scale, clipped as the JAX
+                # branch clips it on every chunk
+                rho_scale = rho_scale.clamp(rho_lo, rho_hi)
+            all_done = bool(done.all())
+        done_chunk = done_chunk.masked_fill(done & ~done_in, nc)
+        chunk = nc
+
+    status = torch.where(done, status, MAX_ITER).to(torch.int32)
+    done_chunk = torch.where(active & (done_chunk == 0), chunk, done_chunk)
+    return ADMMResult(
+        x=prob.D * x,
+        status=status,
+        iters=chunk * settings.check_every,
+        pri_res=rp,
+        dua_res=rd,
+        state=ADMMState(xbar=x, ybar=y, zbar=z, rho_scale=rho_scale,
+                        minv=state.minv, minv_ok=state.minv_ok,
+                        ref_coef=state.ref_coef),
+        done_iters=(done_chunk * settings.check_every).to(torch.int32),
+        pri_tol=tp,
+        dua_tol=td,
+    )
 
 
 def _tile_width(B: int, pallas_tile: int) -> int:

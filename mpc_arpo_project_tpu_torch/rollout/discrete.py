@@ -8,11 +8,15 @@ steps here; the reference quirks the JAX package reproduces (one-step input
 delay, sequential saturation, the in-track estimate swap seen by the
 failsafe, the shared failsafe integrator) are reproduced the same way.
 
-Ported so far: ``synthesis='scipy'`` and ``estimator='ukf'``, with the
-'eig' or the 'pallas' solve (``settings.solve_mode``). Nothing in the step
-depends on the mode: the solver's inverse state (``ADMMState.minv``) is
-carried and frozen for dead scenarios whatever its shape. The engine lives
-on the CUDA device unless ``build_engine`` is given ``device="cpu"``.
+Every solve mode runs ('chol', the default, 'eig' or 'pallas':
+``settings.solve_mode``); nothing in the step depends on the mode: the
+solver's inverse state (``ADMMState.minv``) is carried and frozen for dead
+scenarios whatever its shape. The estimator is the UKF (``'ukf'``) or the
+steady-state KF on a linear position measurement (``'kf'``); the gains are
+synthesized with scipy (``synthesis='scipy'``) or by the torch DARE and
+Ackermann of ``ops.riccati`` in float64 on the CPU (``'torch'``, the JAX
+package's ``'jax'``). The engine lives on the CUDA device unless
+``build_engine`` is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from mpc_arpo_project_tpu_torch.config import (
     Debris, FailsafeParams, MPCParams, SimConditions)
-from mpc_arpo_project_tpu_torch.ops import admm, constraints, host_synthesis, ukf
+from mpc_arpo_project_tpu_torch.ops import (
+    admm, constraints, host_synthesis, kalman, riccati, ukf)
 from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
 
 
@@ -68,6 +73,8 @@ class DiscreteEngine:
     debris_center: torch.Tensor
     debris_half: torch.Tensor
     estimator: str = "ukf"
+    Co: Optional[torch.Tensor] = None  # (2, 6) linear measurement (kf only)
+    L_kf: Optional[torch.Tensor] = None  # (6, 2) steady-state gain (kf only)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -108,23 +115,35 @@ def build_engine(
     estimator: str = "ukf",
     device="cuda",
 ) -> DiscreteEngine:
-    """Host-side engine construction: float64 synthesis (scipy), cast to
-    ``dtype`` on ``device`` (the CUDA device unless the caller asks for the
-    CPU; raises when there is none). The config objects are read by
-    attribute only."""
+    """Host-side engine construction: float64 synthesis, cast to ``dtype``
+    on ``device`` (the CUDA device unless the caller asks for the CPU;
+    raises when there is none). ``synthesis``: 'scipy' (LAPACK DARE and
+    Ackermann, the default) or 'torch' (``ops.riccati`` on float64 CPU
+    tensors; the JAX package calls it 'jax'). ``estimator``: 'ukf' or 'kf'
+    (its gain from the scipy DARE in float64). The config objects are read
+    by attribute only."""
     device = admm.resolve_device(device)
-    if synthesis != "scipy":
-        raise NotImplementedError(
-            f"synthesis={synthesis!r} is not ported yet (ROADMAP queue 1, "
-            "item 12)")
-    if estimator != "ukf":
-        raise NotImplementedError(
-            f"estimator={estimator!r} is not ported yet (ROADMAP queue 1, "
-            "item 12)")
+    if synthesis not in ("scipy", "torch"):
+        raise ValueError(f"unknown synthesis {synthesis!r}: 'scipy' or "
+                         "'torch' (the port's name for the JAX package's "
+                         "in-graph 'jax' synthesis)")
+    if estimator not in ("ukf", "kf"):
+        raise ValueError(f"unknown estimator {estimator!r}")
     T = sim.time_stp
     dims = QPDims(Nx=mpc.Nx, Nc=mpc.Nc, Nb=mpc.Nb)
     Ad, Bd = host_synthesis.discretize_np(sim.mean_mtn, T, sim.isDeltaV)
-    K, QN, Kpf, Kif, K_total, K_i = host_synthesis.synth_gains_np(Ad, Bd, mpc, fail)
+    if synthesis == "torch":
+        f64 = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
+        Adt, Bdt = f64(Ad), f64(Bd)
+        Kt, QNt = riccati.dlqr(Adt, Bdt, f64(mpc.Q_state), f64(mpc.R_input))
+        _, Kpft, Kift = riccati.dlqr_integral(
+            Adt, Bdt, f64(fail.Q_fail), f64(fail.R_fail), f64(fail.C_int))
+        Ktt, Kit = riccati.deadbeat_debris_gains(Adt, Bdt)
+        K, QN, Kpf, Kif, K_total, K_i = (
+            v.numpy() for v in (Kt, QNt, Kpft, Kift, Ktt, Kit))
+    else:
+        K, QN, Kpf, Kif, K_total, K_i = host_synthesis.synth_gains_np(
+            Ad, Bd, mpc, fail)
     static = build_qp(dims, sim, mpc, Ad, Bd, K, QN)
     # equilibrate on the INITIAL constraint matrix, as the reference's OSQP
     # setup does
@@ -152,6 +171,12 @@ def build_engine(
     Qw[:4, :4] = 0.001 * np.eye(4)
     Qw[4, 4] = (T * sig[0]) ** 2
     Qw[5, 5] = (T * sig[1]) ** 2
+    if estimator == "kf":
+        Co = np.hstack([np.eye(2, 4), np.zeros((2, 2))])
+        L_kf, _ = kalman.steady_state_gain_np(
+            Ao, Co, Qw + 1e-9 * np.eye(6), 1e-4 * np.eye(2))
+    else:
+        Co = L_kf = None
 
     if debris is not None:
         d_center = np.asarray(debris.center, dtype=np.float64)
@@ -176,6 +201,8 @@ def build_engine(
         sig_diag=t(sig), noise_rep=noise_rep, dist_tol=t(sim.suc_cond[0]),
         ang_tol=t(sim.suc_cond[1]), debris_center=t(d_center),
         debris_half=t(d_half), estimator=estimator,
+        Co=None if Co is None else t(Co),
+        L_kf=None if L_kf is None else t(L_kf),
     )
 
 
@@ -315,7 +342,14 @@ def _step(engine: DiscreteEngine, carry: _Carry, i: int, noise_i: torch.Tensor,
     x_next = x @ engine.Ad.T + carry.prev_u @ engine.Bd.T + noise_i
 
     # --- estimation
-    if engine.has_noise:
+    if engine.has_noise and engine.estimator == "kf":
+        # steady-state KF: linear position measurement, fixed gain; the
+        # covariance is static by construction
+        xest_next = kalman.kf_step(carry.xest, carry.prev_u, x_next[:, :2],
+                                   engine.Ao, engine.Bou, engine.Co,
+                                   engine.L_kf)
+        P_next = carry.P
+    elif engine.has_noise:
         z = torch.stack([torch.linalg.vector_norm(x_next[:, :2], dim=1),
                          torch.atan2(x_next[:, 1], x_next[:, 0])], 1)
         st = ukf.step(ukf.UKFState(x=carry.xest, P=carry.P), carry.prev_u, z,

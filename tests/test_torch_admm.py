@@ -90,29 +90,53 @@ def test_admm_solve_matches_jax_warm(setup, cold):
     _assert_matches_jax(rt, setup["j2"])
 
 
+# Compaction, alive-first packing and the refresh capacity cut only move
+# independent problems between slots, so the discrete outcomes must be
+# equal. The real values are held per row, relative to the row's max-abs:
+# a CPU BLAS (MKL here) does not give a GEMM row bit for bit the same result
+# when the product has another number of rows (fp64, one thread: (X @ W)[:r]
+# and X[:r] @ W differ for r = 1, 2, 6 at W 201x201), and moving problems
+# changes the row counts of the solver's batched products. Measured on an
+# AVX-512 CPU: x within 1.4e-11 (compaction) and 2.0e-11 (packing), minv
+# within 1.2e-13. The tolerances are about 10x those. On the card the
+# kernels work one block per slot, so compaction stays bit-exact there
+# (``tests/test_torch_cuda.py``).
+X_RTOL = 2e-10
+MINV_RTOL = 2e-12
+
+
+def _rows_close(a, b, rtol):
+    a = a.reshape(a.shape[0], -1)
+    b = b.reshape(b.shape[0], -1)
+    scale = b.abs().amax(1).clamp(min=1e-300)
+    return bool(((a - b).abs().amax(1) <= rtol * scale).all())
+
+
 def test_compaction_is_a_pure_permutation(setup, cold):
-    """Straggler compaction only moves problems between slots: the results
-    are bit-identical with it disabled or at other boundaries."""
+    """Straggler compaction only moves problems between slots: statuses,
+    ``done_iters`` and iteration counts are equal with it disabled or at
+    other boundaries, x and the inner inverses equal to round-off."""
     for chunks in ((), (1, 2, 4, 8)):
         r = _solve(setup, tadmm.ADMMSettings(eig_compact_chunks=chunks, **KW))
-        assert torch.equal(r.x, cold.x), chunks
         assert torch.equal(r.status, cold.status), chunks
         assert torch.equal(r.done_iters, cold.done_iters), chunks
-        assert torch.equal(r.state.minv, cold.state.minv), chunks
         assert r.iters == cold.iters
+        assert _rows_close(r.x, cold.x, X_RTOL), chunks
+        assert _rows_close(r.state.minv, cold.state.minv, MINV_RTOL), chunks
 
 
 def test_alive_first_packing_is_a_pure_permutation(setup, cold):
     """Inactive problems are packed after the active ones of their combo
-    group: active rows are bit-identical to the all-active solve, inactive
-    rows stay frozen and UNSOLVED."""
+    group: active rows give the all-active solve's statuses and
+    ``done_iters`` and its x to round-off; inactive rows stay frozen bit
+    for bit and UNSOLVED."""
     st = tadmm.ADMMSettings(**KW)
     st0 = tadmm.init_state(setup["tp"], setup["p"]["B"], st)
     active = torch.tensor([True, False, True, True, False, True, False, True])
     r = _solve(setup, st, state=st0, active=active)
-    assert torch.equal(r.x[active], cold.x[active])
     assert torch.equal(r.status[active], cold.status[active])
     assert torch.equal(r.done_iters[active], cold.done_iters[active])
+    assert _rows_close(r.x[active], cold.x[active], X_RTOL)
     assert (r.status[~active] == tadmm.UNSOLVED).all()
     assert torch.equal(r.state.xbar[~active], st0.xbar[~active])
     assert torch.equal(r.state.ybar[~active], st0.ybar[~active])
@@ -121,16 +145,20 @@ def test_alive_first_packing_is_a_pure_permutation(setup, cold):
 def test_refresh_capacity_compaction_is_exact(setup, cold):
     """The capacity-compacted Woodbury refresh (24 slots: cap 6 >= 4 needy
     rows) and its full-width fallback (cap 2 < 4) equal the full-width
-    refresh that the default divisor gives at this size (cap 0)."""
+    refresh that the default divisor gives at this size (cap 0): statuses
+    equal, x and the inner inverses to round-off (the refresh's batched
+    products change their row count here too; measured bit-identical on
+    an AVX-512 CPU)."""
     for div in (4, 12):
         r = _solve(setup, tadmm.ADMMSettings(**dict(KW, eig_refresh_cap_div=div)))
-        assert torch.equal(r.x, cold.x), div
         assert torch.equal(r.status, cold.status), div
-        assert torch.equal(r.state.minv, cold.state.minv), div
+        assert torch.equal(r.done_iters, cold.done_iters), div
+        assert _rows_close(r.x, cold.x, X_RTOL), div
+        assert _rows_close(r.state.minv, cold.state.minv, MINV_RTOL), div
 
 
 @pytest.mark.parametrize("kw, err", [
-    (dict(solve_mode="chol"), NotImplementedError),
+    (dict(solve_mode="qr"), ValueError),
     (dict(solve_mode="pallas", mxu_precision="high"), ValueError),
     (dict(KW, eig_rescue_mode="near"), ValueError),
     (dict(KW, stall_exit_chunks=6, eig_rescue_chunks=6), ValueError),

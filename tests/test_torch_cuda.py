@@ -14,7 +14,9 @@ certificate fires. For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
 (Nx=40 unpadded, nz=201, m=406, B=8) through ``pallas_inputs``. Tolerance
 1e-10 per row in fp64: each kernel and its twin run the same arithmetic in
 another summation order, over 25 chunk iterations or 45 Newton–Schulz
-steps.
+steps. The six probe kernels (fp32 only) run on the probe's unit-gain
+inputs at nz=32, m=64, B=8, bt=4 and at a ragged nz=40 (B=6, bt=3), held to
+their twins to 1e-5 per row (``kernel_probe.check_against_twin``).
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ import torch
 
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
 from mpc_arpo_project_tpu_torch.ops import constraints
+from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
@@ -233,3 +236,58 @@ def test_cuda_pallas_wrappers_reject_what_the_kernels_do_not_take(gpu,
     with pytest.raises(ValueError, match="M"):
         admm_pallas.newton_schulz_inverse(pallas["M"], X, 1)
     assert counts() == n0
+
+
+@pytest.mark.parametrize("n_it", [1, 25])
+@pytest.mark.parametrize("shape", [(8, 4, 32, 64), (6, 3, 40, 72)])
+@pytest.mark.parametrize("name", ["matvec_pair", "minv_rowvec", "minv_lhs",
+                                  "minv_bf16", "minv_blockdiag", "stack7"])
+def test_cuda_probe_kernel_matches_twin(gpu, name, shape, n_it):
+    """Each probe kernel against its twin: rows within 1e-5 (or, for the
+    bf16 variant over many iterations, as near the exact product as the
+    twin), one launch counted per call."""
+    B, bt, nz, m = shape
+    inputs = kp.make_inputs(B, bt, nz, m, device=gpu, unit_gain=True)
+    kp.check_against_twin(name, inputs, n_it)
+
+
+def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take(gpu):
+    inputs = kp.make_inputs(8, 4, 32, 64, device=gpu)
+    n0 = kp.minv_rowvec.launches
+    with pytest.raises(TypeError):
+        kp.minv_rowvec(inputs["x"].double(), inputs["minv"].double(), 1)
+    with pytest.raises(ValueError, match="mat"):
+        kp.minv_rowvec(inputs["x"], inputs["minv"].cpu(), 1)
+    with pytest.raises(ValueError, match="bt"):
+        kp.minv_blockdiag(inputs["x"], inputs["mflat"], 1, 3)
+    assert kp.minv_rowvec.launches == n0
+
+
+def test_cuda_compaction_is_bit_exact(gpu):
+    """On the card the chunk kernel works one block per slot, so moving
+    problems between slots changes nothing: in fp64 the 'eig' solve with
+    straggler compaction off, or at other boundaries, equals the default
+    bit for bit (on a CPU the batched BLAS products of the twin break this;
+    ``tests/test_torch_admm.py``)."""
+    prob, _, l, u = _problem("eig")
+    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
+    coeffs = (t([1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0]),
+              t([1.0, -1.0, 1.0, -1.0, 1.0, -1.0, 1.0, -1.0]),
+              t([0.0, 0.0, 0.0, 0.0, 1.9, -2.4, 0.7, -0.4]))
+    mv = lambda v: v.to(gpu) if torch.is_tensor(v) else v
+    probg = admm.ADMMProblem(*(mv(f) for f in prob))
+    coeffs, l, u = tuple(mv(c) for c in coeffs), mv(l), mv(u)
+
+    def solve(**kw):
+        st = admm.ADMMSettings(solve_mode="eig", pallas_tile=4, max_iter=2000,
+                               **kw)
+        return admm.admm_solve(probg, coeffs, l, u,
+                               admm.init_state(probg, 8, st), st)
+
+    base = solve()
+    for chunks in ((), (1, 2, 4, 8)):
+        r = solve(eig_compact_chunks=chunks)
+        assert torch.equal(r.status, base.status), chunks
+        assert torch.equal(r.done_iters, base.done_iters), chunks
+        assert torch.equal(r.x, base.x), chunks
+        assert torch.equal(r.state.minv, base.state.minv), chunks
