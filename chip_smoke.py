@@ -21,8 +21,8 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 4. the chunk-parts probe (``tools/kernel_probe.py`` of the port) at its
    flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32):
    each of its six kernels against its twin on unit-gain inputs (launch
-   counted), then timed as the probe times it, with its bound and useful
-   TF/s;
+   counted), then timed as the probe times it on the same inputs and on
+   the original's scales, with its bound and useful TF/s;
 5. main path 1: the flagship closed loop (radial, noisy, offset-free,
    debris; 'eig' solve, UKF) for 20 control steps at B=1024, fp32;
 6. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
@@ -52,7 +52,6 @@ import json
 import statistics
 import sys
 import time
-import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -105,33 +104,24 @@ def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
 @contextlib.contextmanager
 def _solver_calls(mode, **fns):
     """Make the solver (``ops.admm``) call ``fns`` in place of the functions
-    of the same names in its kernel module (``admm_eig`` or
-    ``admm_pallas``, by ``mode``; for 'chol', its own ``_chol_factor`` and
-    ``_chol_solve``) for the duration of the block. The kernel module
-    itself is left as it is: its entries count their launches on
-    themselves."""
+    of the same names in the module it looks them up in (``admm_eig`` or
+    ``admm_pallas``, by ``mode``; for 'chol', ``admm`` itself: its
+    ``_chol_factor`` and ``_chol_solve``) for the duration of the block.
+    Each stand-in shares its function's attributes, so a kernel entry that
+    counts its launches by its own name in its module still counts them on
+    itself."""
     from mpc_arpo_project_tpu_torch.ops import admm
 
-    if mode == "chol":
-        saved = {n: getattr(admm, n) for n in fns}
-        for n, f in fns.items():
-            setattr(admm, n, f)
-        try:
-            yield
-        finally:
-            for n, f in saved.items():
-                setattr(admm, n, f)
-        return
-    attr = "admm_eig" if mode == "eig" else "admm_pallas"
-    mod = getattr(admm, attr)
-    view = types.SimpleNamespace(**vars(mod))
+    mod = admm if mode == "chol" else _solver_module(mode)
+    saved = {n: getattr(mod, n) for n in fns}
     for n, f in fns.items():
-        setattr(view, n, f)
-    setattr(admm, attr, view)
+        f.__dict__ = saved[n].__dict__
+        setattr(mod, n, f)
     try:
         yield
     finally:
-        setattr(admm, attr, mod)
+        for n, f in saved.items():
+            setattr(mod, n, f)
 
 
 def _solver_module(mode):
@@ -428,19 +418,19 @@ def admm_chunk_bound(args, kw, outs):
 
 
 def probe_bound(name, inputs, n_it):
-    """One probe kernel: the operations it executes (the block-diagonal
-    variant's bt-fold zero MACs and the bf16 variant's two limb products
-    included), each input read once and the output written once."""
+    """One probe kernel: the function's useful MACs, each input read once
+    and the output written once. Also returns the time at fp32 peak of the
+    MACs the kernel executes (the bf16 variant's two limb products, the
+    block-diagonal variant's bt-fold masked MACs), that layout's cost."""
     from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
+    v = kp.variant(name, inputs)
     x = inputs["x"]
-    B, nz = x.shape
-    m, bt = inputs["a0"].shape[0], inputs["bt"]
-    macs = dict(matvec_pair=2 * m * nz, minv_rowvec=nz * nz,
-                minv_lhs=nz * nz, minv_bf16=2 * nz * nz,
-                minv_blockdiag=bt * nz * nz, stack7=7 * nz * nz)[name]
-    operand = inputs[kp.variants(nz, m)[name].operand]
-    return _bound(2.0 * macs * B * n_it, _bytes([x, operand, x], 1.0, B))
+    n = 2.0 * x.shape[0] * n_it
+    bound_ms, bound_by = _bound(n * v.macs,
+                                _bytes([x, inputs[v.operand], x], 1.0,
+                                       x.shape[0]))
+    return bound_ms, bound_by, n * v.executed / PEAK_FP32 * 1e3
 
 
 def ns_bound(n, rows, n_iter, tensors, B, stack=True):
@@ -629,30 +619,34 @@ def check_probe(B=1024, bt=32, n_it=25):
     """The six chunk-parts probe kernels at the probe's flagship shapes:
     each against its twin (unit-gain inputs, per-row tolerance 1e-5, launch
     counted; ``kernel_probe.check_against_twin``), then timed as the probe
-    times it on the original's inputs, beside its twin and its bound.
-    Returns the probe's JSON entry (without launches)."""
-    import torch
+    times it on the same inputs, beside its twin, its bound, and the
+    kernel's time on the original's scales (where the matvec and stack7
+    iterates reach fp32's denormals). Returns the probe's JSON entry
+    (without launches)."""
     from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
     unit = kp.make_inputs(B, bt, unit_gain=True)
     orig = kp.make_inputs(B, bt)
-    nz, m = orig["x"].shape[1], orig["a0"].shape[0]
+    nz, m = unit["x"].shape[1], unit["a0"].shape[0]
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
     by = {"operations": 0.0, "bytes": 0.0}
-    for name, v in kp.variants(nz, m).items():
+    for name, v in kp.variants(nz, m, bt).items():
         err = kp.check_against_twin(name, unit, n_it)
-        ms = kp.time_ms(name, orig, n_it)
-        plain_ms = kp.time_ms(name, orig, n_it, twin=True)
-        bound_ms, bound_by = probe_bound(name, orig, n_it)
+        ms = kp.time_ms(name, unit, n_it)
+        plain_ms = kp.time_ms(name, unit, n_it, twin=True)
+        orig_ms = kp.time_ms(name, orig, n_it)
+        bound_ms, bound_by, executed_ms = probe_bound(name, unit, n_it)
         tf = 2 * v.macs * B * n_it / (ms * 1e-3) / 1e12
-        stream = ""
+        extra = ""
+        if v.executed != v.macs:
+            extra += f", executed MACs at fp32 peak {executed_ms:.3f} ms"
         if v.operand in ("minv", "mflat"):
-            floor = orig["minv"].numel() * 4 * n_it / HBM_BYTES_S * 1e3
-            stream = f", Minv streamed every iteration {floor:.3f} ms"
+            floor = unit["minv"].numel() * 4 * n_it / HBM_BYTES_S * 1e3
+            extra += f", Minv streamed every iteration {floor:.3f} ms"
         log(f"  probe {v.label}: {ms:8.3f} ms/chunk {ms / n_it * 1e3:8.1f} "
-            f"us/iter useful {tf:6.2f} TF/s; twin {plain_ms:.3f} ms; bound "
-            f"{bound_ms:.3f} ms ({bound_by}){stream}; vs twin "
-            + json.dumps(err))
+            f"us/iter useful {tf:6.2f} TF/s; original's scales {orig_ms:.3f}"
+            f" ms; twin {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+            f"({bound_by}){extra}; vs twin " + json.dumps(err))
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms

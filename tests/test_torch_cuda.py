@@ -16,7 +16,9 @@ certificate fires. For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
 another summation order, over 25 chunk iterations or 45 Newton–Schulz
 steps. The six probe kernels (fp32 only) run on the probe's unit-gain
 inputs at nz=32, m=64, B=8, bt=4 and at a ragged nz=40 (B=6, bt=3), held to
-their twins to 1e-5 per row (``kernel_probe.check_against_twin``).
+their twins to 1e-5 per row (``kernel_probe.check_against_twin``; the bf16
+kernel at one iteration, and over more on matrices where its arithmetic is
+exact).
 """
 
 import numpy as np
@@ -243,9 +245,9 @@ def test_cuda_pallas_wrappers_reject_what_the_kernels_do_not_take(gpu,
 @pytest.mark.parametrize("name", ["matvec_pair", "minv_rowvec", "minv_lhs",
                                   "minv_bf16", "minv_blockdiag", "stack7"])
 def test_cuda_probe_kernel_matches_twin(gpu, name, shape, n_it):
-    """Each probe kernel against its twin: rows within 1e-5 (or, for the
-    bf16 variant over many iterations, as near the exact product as the
-    twin), one launch counted per call."""
+    """Each probe kernel against its twin: rows within 1e-5, one launch
+    counted per call (the bf16 kernel at one iteration on these inputs,
+    and over ``n_it`` on ``exact_bf16_minv``'s)."""
     B, bt, nz, m = shape
     inputs = kp.make_inputs(B, bt, nz, m, device=gpu, unit_gain=True)
     kp.check_against_twin(name, inputs, n_it)

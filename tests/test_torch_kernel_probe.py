@@ -200,9 +200,53 @@ def test_entries_refuse_other_devices():
 
 
 def test_variants_keep_the_original_labels_and_macs():
-    v = kp.variants(256, 512)
+    v = kp.variants(256, 512, 32)
     assert list(v) == ["matvec_pair", "minv_rowvec", "minv_lhs", "minv_bf16",
                        "minv_blockdiag", "stack7"]
     assert [e.macs for e in v.values()] == [2 * 512 * 256] + [256 * 256] * 4 \
         + [7 * 256 * 256]
+    # executed: the bf16 kernel's two limb products, the block-diagonal
+    # kernel's bt-fold masked MACs
+    assert [e.executed for e in v.values()] == [
+        2 * 512 * 256, 256 * 256, 256 * 256, 2 * 256 * 256, 32 * 256 * 256,
+        7 * 256 * 256]
     assert v["minv_blockdiag"].label.strip() == "minv block-diag"
+
+
+def _signed_perm_apply(x, m, n_it):
+    """n_it applications of the signed permutation underlying ``m`` (its
+    entries' signs), in fp64."""
+    s = torch.sign(m).double()
+    x = x.double()
+    for _ in range(n_it):
+        x = torch.bmm(x[:, None, :], s)[:, 0]
+    return x
+
+
+@pytest.mark.parametrize("n_it", [1, 25])
+def test_exact_bf16_minv_makes_the_two_limb_arithmetic_exact(n_it):
+    """On ``exact_bf16_minv``'s matrices the bf16 twin gives, bit for bit,
+    bf16(x) moved by the signed permutation n_it times and scaled once by
+    1 + 2^-10, in fp32 as in fp64; so the card's check can hold the kernel
+    to its twin over the probe's 25 iterations. A kernel that drops the lo
+    limb, or that does not round x to bf16, misses by far more than the
+    check's 1e-5."""
+    inp = _inputs(torch.float32)
+    x = inp["x"]
+    m = kp.exact_bf16_minv(inp["minv"])
+    assert m.shape == inp["minv"].shape and m.dtype == torch.float32
+    assert torch.equal((m != 0).sum(1), torch.ones((B, NZ), dtype=torch.long))
+    assert torch.equal((m != 0).sum(2), torch.ones((B, NZ), dtype=torch.long))
+    hi, lo = kp.bf16_limbs(m, torch.float32)
+    assert torch.equal(hi, torch.sign(m))
+    assert torch.equal(lo, torch.sign(m) * 2.0 ** -10)
+    xb = torch.from_numpy(bf16_np(x.numpy()))
+    want = _signed_perm_apply(xb, m, n_it) * (1 + 2.0 ** -10)
+    got = kp.minv_bf16_ref(x, m, n_it)
+    assert torch.equal(got.double(), want)
+    assert torch.equal(kp.minv_bf16_ref(x.double(), m, n_it), want)
+    no_lo = _signed_perm_apply(xb, m, n_it)
+    assert _row_rel(no_lo, want) > 1e-4
+    if n_it > 1:
+        unrounded = kp.minv_rowvec_ref(x, m, n_it)
+        assert _row_rel(unrounded, want) > 1e-3
