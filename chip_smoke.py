@@ -16,8 +16,11 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    beside its plain twin:
    - ``eig_chunk`` ('eig' engine);
    - ``admm_chunk``, ``ns_fused`` (warm and cold, on a need mask that
-     includes rows poisoned with inf and NaN) and ``newton_schulz_inverse``
-     (on the per-problem M of ``_build_M``) ('pallas' engine);
+     includes rows poisoned with inf and NaN; the full-width cold first
+     refresh; 3 needy rows of a 32-row call, the costliest class of the
+     refresh census) and ``newton_schulz_inverse`` (on the per-problem M of
+     ``_build_M``) ('pallas' engine); the Newton–Schulz cases are timed in
+     fp32 and fp64 beside ``torch.linalg.inv`` of the same M;
 4. the chunk-parts probe (``tools/kernel_probe.py`` of the port) at its
    flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32):
    each of its six kernels against its twin on unit-gain inputs (launch
@@ -31,7 +34,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    (the fp64 oracle mode) in fp64; each main path reports every kernel's
    launch count (set to 0 just before the path, read just after),
    alive-solves/s, the status mix, the mean ADMM iterations per step, a
-   per-step split from CUDA events and the peak device memory;
+   per-step split from CUDA events and the peak device memory; 'pallas'
+   also a census of its ``ns_fused`` calls by (rows, warm/cold, needy
+   count);
 8. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination and ``done_iters``, and trajectories within 1e-6; for
@@ -39,6 +44,11 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    with ``synthesis='torch'``;
 9. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
+
+With ``--ns-dump FILE`` it also saves every Newton–Schulz kernel call of
+phase 3 (inputs, X's digest, residuals) for
+``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
+another tree's kernels and compares bit for bit.
 
 Prints the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
@@ -57,8 +67,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 # H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
-# beside every time): fp32 on the CUDA cores, HBM3 bandwidth
+# beside every time): fp32 and fp64 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -269,9 +280,30 @@ def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
     return max_abs, summary
 
 
-def compare_inverse(kernel, plain, args, kw, dtype, tol, label, need=None):
-    """Run a Newton–Schulz entry and its twin on the same inputs in
-    ``dtype``; returns (max abs err on the held rows, summary dict).
+class NSRecord:
+    """The Newton–Schulz kernel calls of the comparisons (``--ns-dump``):
+    inputs (one CPU copy each), keywords, the digest of X and the
+    residuals, for ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``."""
+
+    def __init__(self):
+        self.calls, self._cpu = [], {}
+
+    def add(self, kernel, args, kw, dtype, n_need, label, xk, rk):
+        from mpc_arpo_project_tpu_torch.tools.ns_replay import digest
+
+        keep = lambda t: self._cpu.setdefault(id(t), (t, t.cpu()))[1]
+        self.calls.append(dict(
+            label=label, entry=kernel.__name__, args=tuple(map(keep, args)),
+            kw=dict(kw), n_need=n_need, dtype=str(dtype)[6:],
+            x_digest=digest(xk), res=rk.cpu()))
+
+
+def compare_inverse(kernel, plain, args, kw, dtype, tol, label, need=None,
+                    n_need=None, record=None):
+    """Run a Newton–Schulz entry (given ``n_need``) and its twin on the
+    same inputs in ``dtype``; returns (max abs err on the held rows,
+    summary dict). The kernel's call goes to ``record`` (an ``NSRecord``)
+    when one is given.
 
     With ``need`` (``ns_fused``: args = stack, w, X_prev, need), rows
     without need must pass through bit for bit, inf and NaN included, with
@@ -284,7 +316,9 @@ def compare_inverse(kernel, plain, args, kw, dtype, tol, label, need=None):
     import torch
 
     a, k = _cast(args, kw, dtype)
-    xk, rk = _launch(kernel, a, k, label)
+    xk, rk = _launch(kernel, a, dict(k, n_need=n_need), label)
+    if record is not None:
+        record.add(kernel, args, kw, dtype, n_need, label, xk, rk)
     xr, rr = plain(*a, **k)
     B = xk.shape[0]
     if need is None:
@@ -378,8 +412,8 @@ def _bytes(tensors, live_frac, B):
     return total
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / HBM_BYTES_S
+def _bound(flops, nbytes, peak=PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -436,10 +470,44 @@ def probe_bound(name, inputs, n_it):
 def ns_bound(n, rows, n_iter, tensors, B, stack=True):
     """Newton–Schulz on ``rows`` problems: 2 n_iter + 1 products of n^3
     MACs each (the iteration and the residual), plus building M from the
-    7-matrix stack once (ns_fused)."""
+    7-matrix stack once (ns_fused); at the fp32 or fp64 CUDA-core peak by
+    the tensors' type."""
+    import torch
+
     flops = 2.0 * rows * ((2 * n_iter + 1) * n ** 3 + (7 * n * n if stack
                                                         else 0))
-    return _bound(flops, _bytes(tensors, rows / B, B))
+    f64 = any(torch.is_tensor(t) and t.dtype == torch.float64
+              for t in tensors)
+    return _bound(flops, _bytes(tensors, rows / B, B),
+                  PEAK_FP64 if f64 else PEAK_FP32)
+
+
+def time_ns_case(label, kernel, plain, args, kw, n_need, M, n=20):
+    """Time a Newton–Schulz entry (given ``n_need``) beside its cuBLAS twin,
+    ``torch.linalg.inv`` of the same needy M, and its bound, in fp32 and
+    fp64 (median of ``n`` CUDA-event runs); returns the fp32 (ms, plain
+    ms, bound ms, bound by, inv ms)."""
+    import torch
+
+    fused = len(args) == 4
+    B, nz = args[-2 if fused else -1].shape[:2]
+    rows = int(args[3].sum()) if fused else B
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        a, k = _cast(args, kw, dt)
+        Md = M.to(dt)
+        k_ms = time_ms(lambda: kernel(*a, **k, n_need=n_need), n)
+        p_ms = time_ms(lambda: plain(*a, **k), n)
+        inv_ms = time_ms(lambda: torch.linalg.inv(Md), n)
+        b_ms, b_by = ns_bound(nz, rows, k["n_iter"], list(a) + [a[-2 if fused
+                                                                 else -1]],
+                              B, stack=fused)
+        log(f"{label}, {str(dt)[6:].replace('float', 'fp')}: kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}); torch.linalg.inv of the same M {inv_ms:.3f} ms "
+            f"(median of {n}, CUDA events)")
+        out[dt] = (k_ms, p_ms, b_ms, b_by, inv_ms)
+    return out[torch.float32]
 
 
 # ---------------------------------------------------------------------------
@@ -480,10 +548,11 @@ def check_eig_kernel(engine, B):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_pallas_kernels(engine, B):
+def check_pallas_kernels(engine, B, record=None):
     """``admm_chunk``, ``ns_fused`` and ``newton_schulz_inverse`` against
     their twins on inputs of the 'pallas' flagship engine; returns their
-    JSON entries (without launches)."""
+    JSON entries (without launches). The Newton–Schulz kernel calls of the
+    comparisons go to ``record`` when one is given."""
     import torch
     from mpc_arpo_project_tpu_torch.ops import admm, admm_pallas
 
@@ -540,41 +609,58 @@ def check_pallas_kernels(engine, B):
     X_prev[1] = torch.inf
     X_prev[2] = torch.nan
     X_prev[8] = torch.nan
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    # the census's costliest class (PERF.md section 5): 3 needy rows of a
+    # 32-row overtime lane, cold
+    need32 = torch.zeros(32, dtype=torch.bool, device=dev)
+    need32[[3, 17, 30]] = True
+    w32, x32 = w[:32].contiguous(), minv[:32].contiguous()
+    fused_cases = [  # (label, args, kw, n_need)
+        ("warm", (stack, w, X_prev, need), dict(n_iter=st.ns_warm_iters,
+                                                cold=False), None),
+        ("cold", (stack, w, X_prev, need), dict(n_iter=st.ns_cold_iters,
+                                                cold=True), None),
+        ("cold, full width (the first refresh)", (stack, w, minv, ones),
+         dict(n_iter=st.ns_cold_iters, cold=True), B),
+        ("cold, 3 needy of 32 rows", (stack, w32, x32, need32),
+         dict(n_iter=st.ns_cold_iters, cold=True), 3)]
     max_ns = 0.0
-    for cold, iters in ((False, st.ns_warm_iters), (True, st.ns_cold_iters)):
+    for label, args, kw, n_need in fused_cases:
         for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
-            label = f"ns_fused {'cold' if cold else 'warm'} {str(dt)[6:]}"
             err, _ = compare_inverse(
-                admm_pallas.ns_fused, admm_pallas.ns_fused_ref,
-                (stack, w, X_prev, need), dict(n_iter=iters, cold=cold), dt,
-                tol, label, need=need)
+                admm_pallas.ns_fused, admm_pallas.ns_fused_ref, args, kw, dt,
+                tol, f"ns_fused {label} {str(dt)[6:]}", need=args[3],
+                n_need=n_need, record=record)
             if dt == torch.float32:
                 max_ns = max(max_ns, err)
 
-    # the compacted refresh of the main path: the K = B/8 needy rows alone
+    # timed: the compacted refresh of chip_smoke's earlier PRs (the K = B/8
+    # needy rows alone, warm and cold), the full-width first refresh and
+    # the census's costliest class
     rows = torch.nonzero(need).squeeze(1)
+    K = rows.numel()
     w_k, x_k = w[rows].contiguous(), minv[rows].contiguous()
-    need_k = torch.ones(rows.numel(), dtype=torch.bool, device=dev)
-    M_k = admm_pallas._stack_matrix(stack, w_k).contiguous()
-    times = {}
-    for cold, iters in ((False, st.ns_warm_iters), (True, st.ns_cold_iters)):
-        kw = dict(n_iter=iters, cold=cold)
-        times[cold] = (
-            time_ms(lambda: admm_pallas.ns_fused(stack, w_k, x_k, need_k,
-                                                 **kw)),
-            time_ms(lambda: admm_pallas.ns_fused_ref(stack, w_k, x_k, need_k,
-                                                     **kw)),
-            ns_bound(nz, rows.numel(), iters,
-                     [stack, w_k, x_k, need_k, x_k], rows.numel()))
-    inv_ms = time_ms(lambda: torch.linalg.inv(M_k))
-    for cold in (False, True):
-        (k_ms, p_ms, (b_ms, b_by)) = times[cold]
-        log(f"ns_fused {'cold' if cold else 'warm'} "
-            f"({st.ns_cold_iters if cold else st.ns_warm_iters} iterations) "
-            f"on {rows.numel()} needy rows, fp32: kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); torch.linalg.inv "
-            f"of the same M {inv_ms:.3f} ms (median of 20, CUDA events)")
-    k_ms, p_ms, (b_ms, b_by) = times[True]
+    need_k = torch.ones(K, dtype=torch.bool, device=dev)
+    Ms = lambda wt, nd: admm_pallas._stack_matrix(stack, wt[nd]).contiguous()
+    fp32 = {}
+    for label, args, kw, n_need, M_of in (
+            (f"ns_fused warm ({st.ns_warm_iters} iterations) on {K} needy "
+             "rows", (stack, w_k, x_k, need_k), fused_cases[0][2], None,
+             Ms(w_k, need_k)),
+            (f"ns_fused cold ({st.ns_cold_iters} iterations) on {K} needy "
+             "rows", (stack, w_k, x_k, need_k), fused_cases[1][2], None,
+             Ms(w_k, need_k)),
+            (f"ns_fused cold ({st.ns_cold_iters} iterations), full width: "
+             f"{B} needy rows", fused_cases[2][1], fused_cases[2][2], B,
+             Ms(w, ones)),
+            (f"ns_fused cold ({st.ns_cold_iters} iterations), 3 needy of 32 "
+             "rows (the census's costliest class)", fused_cases[3][1],
+             fused_cases[3][2], 3, Ms(w32, need32))):
+        fp32[label] = time_ns_case(
+            label, admm_pallas.ns_fused, admm_pallas.ns_fused_ref, args, kw,
+            n_need, M_of, n=5 if n_need == B else 20)
+    k_ms, p_ms, b_ms, b_by, inv_ms = fp32[
+        f"ns_fused cold ({st.ns_cold_iters} iterations) on {K} needy rows"]
     fused = dict(name="ns_fused", route="cuda",
                  source="mpc_arpo_project_tpu_torch/csrc/ns_inverse.cu",
                  replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:119",
@@ -592,21 +678,15 @@ def check_pallas_kernels(engine, B):
             admm_pallas.newton_schulz_inverse,
             admm_pallas.newton_schulz_inverse_ref, (M, X0),
             dict(n_iter=st.ns_cold_iters), dt, tol,
-            f"newton_schulz_inverse {str(dt)[6:]}")
+            f"newton_schulz_inverse {str(dt)[6:]}", record=record)
         if dt == torch.float32:
             max_inv = err
     Mk, X0k = M[rows].contiguous(), X0[rows].contiguous()
-    i_ms = time_ms(lambda: admm_pallas.newton_schulz_inverse(
-        Mk, X0k, st.ns_cold_iters))
-    i_plain = time_ms(lambda: admm_pallas.newton_schulz_inverse_ref(
-        Mk, X0k, st.ns_cold_iters))
-    i_lib = time_ms(lambda: torch.linalg.inv(Mk))
-    i_bound, i_by = ns_bound(nz, rows.numel(), st.ns_cold_iters,
-                             [Mk, X0k, X0k], rows.numel(), stack=False)
-    log(f"newton_schulz_inverse ({st.ns_cold_iters} iterations) on "
-        f"{rows.numel()} problems, fp32: kernel {i_ms:.3f} ms, plain "
-        f"{i_plain:.3f} ms, bound {i_bound:.3f} ms ({i_by}); "
-        f"torch.linalg.inv {i_lib:.3f} ms (median of 20, CUDA events)")
+    i_ms, i_plain, i_bound, i_by, i_lib = time_ns_case(
+        f"newton_schulz_inverse ({st.ns_cold_iters} iterations) on {K} "
+        "problems", admm_pallas.newton_schulz_inverse,
+        admm_pallas.newton_schulz_inverse_ref, (Mk, X0k),
+        dict(n_iter=st.ns_cold_iters), None, Mk)
     inverse = dict(name="ns_inverse", route="cuda",
                    source="mpc_arpo_project_tpu_torch/csrc/ns_inverse.cu",
                    replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:64",
@@ -696,6 +776,7 @@ def main_path(engine, B, seed):
     gen = torch.Generator(device=engine.device).manual_seed(seed)
     noise = discrete.make_noise_sequence(engine, gen, B)
     spans = {fn: [] for _, fn in timed_fns}
+    census = []
 
     def timed(name, fn):
         def call(*a, **k):
@@ -708,10 +789,26 @@ def main_path(engine, B, seed):
             return out
         return call
 
+    def censused(fn):
+        """``ns_fused`` recording each call's rows, need count (kept on the
+        device, read after the run), warm/cold, n_iter and CUDA-event span."""
+        def call(stack, w, X_prev, need, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(stack, w, X_prev, need, **k)
+            e1.record()
+            census.append((X_prev.shape[0], bool(k["cold"]), k["n_iter"],
+                           need.sum(), e0, e1))
+            return out
+        return call
+
+    wrapped = {fn: timed(fn, getattr(mod, fn)) for _, fn in timed_fns}
+    if mode == "pallas":
+        wrapped["ns_fused"] = censused(mod.ns_fused)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _solver_calls(mode, **{fn: timed(fn, getattr(mod, fn))
-                                for _, fn in timed_fns}):
+    with _solver_calls(mode, **wrapped):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -752,6 +849,7 @@ def main_path(engine, B, seed):
     split = {"total": wall_ms / T}
     split.update({label: ms[fn] / T for label, fn in timed_fns})
     split[rest_name] = (wall_ms - sum(ms.values())) / T
+    rep_census = refresh_census(census, T, ms.get("masked_safe_refresh"))
     return launches, dict(
         solve_mode=mode, dtype=str(engine.dtype)[6:], steps=T, batch=B,
         wall_s=wall, alive_steps=n_alive,
@@ -763,7 +861,42 @@ def main_path(engine, B, seed):
                               for label, fn in timed_fns},
         launches=launches,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        **({"refresh_census": rep_census} if census else {}),
     )
+
+
+_NEED_BUCKETS = ((1, 1), (2, 8), (9, 32), (33, 128), (129, 512),
+                 (513, 1 << 30))
+
+
+def refresh_census(calls, T, span_ms):
+    """Group the main path's ``ns_fused`` calls by (rows B_l, warm/cold,
+    needy bucket): calls and ms per step, share of the refresh span; logs
+    one line per class, costliest first."""
+    groups = {}
+    for rows, cold, n_iter, needy, e0, e1 in calls:
+        k = int(needy)
+        lo, hi = next(b for b in _NEED_BUCKETS if b[0] <= k <= b[1]) if k \
+            else (0, 0)
+        g = groups.setdefault((rows, "cold" if cold else "warm", n_iter,
+                               f"{lo}-{hi}" if hi < 1 << 30 else f">={lo}"),
+                              [0, 0.0, 0])
+        g[0] += 1
+        g[1] += e0.elapsed_time(e1)
+        g[2] += k
+    out = []
+    for (rows, kind, n_iter, bucket), (n, t, k) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1]):
+        out.append(dict(rows=rows, start=kind, n_iter=n_iter, needy=bucket,
+                        calls_per_step=n / T, ms_per_step=t / T,
+                        mean_needy=k / n, ms_per_call=t / n,
+                        share_of_refresh=t / span_ms if span_ms else None))
+        log(f"  refresh census: B_l={rows} {kind} ({n_iter} it.) needy "
+            f"{bucket}: {n / T:.2f} calls/step, {t / T:.3f} ms/step, "
+            f"{t / n:.3f} ms/call, mean needy {k / n:.1f}, "
+            + (f"{100 * t / span_ms:.1f}% of the refresh span"
+               if span_ms else ""))
+    return out
 
 
 def small_agreement(seed, solve_mode, **engine_kw):
@@ -809,6 +942,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    dump = (sys.argv[sys.argv.index("--ns-dump") + 1]
+            if "--ns-dump" in sys.argv else None)
     from mpc_arpo_project_tpu_torch.ops import _build, admm_eig, admm_pallas
     from mpc_arpo_project_tpu_torch.tools import kernel_probe
 
@@ -850,7 +985,12 @@ def main() -> int:
         f"{pal_engine.prob.gsel.shape[1]}) built in "
         f"{time.perf_counter() - t0:.1f} s")
     entries = [check_eig_kernel(eig_engine, B)]
-    entries += check_pallas_kernels(pal_engine, B)
+    record = NSRecord() if dump else None
+    entries += check_pallas_kernels(pal_engine, B, record)
+    if dump:
+        torch.save({"calls": record.calls}, dump)
+        log(f"saved {len(record.calls)} Newton–Schulz calls to {dump}")
+        del record  # it holds the inputs on the card too
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. the chunk-parts probe

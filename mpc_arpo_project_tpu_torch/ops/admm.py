@@ -1164,11 +1164,11 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         ns_weights = make_ns_weights(coef_l)
         B_l = coef_l.shape[0]
 
-        def full_refresh(minv, rho_scale, needmask):
+        def full_refresh(minv, rho_scale, needmask, n_need=None):
             return admm_pallas.masked_safe_refresh(
                 ns_stack, ns_weights(rho_scale), minv, needmask,
                 warm_iters=settings.ns_warm_iters,
-                cold_iters=settings.ns_cold_iters, bt=bt_l)
+                cold_iters=settings.ns_cold_iters, bt=bt_l, n_need=n_need)
 
         # compact the (usually sparse) needy rows into a K-slot buffer;
         # the full-width refresh when they do not fit
@@ -1178,14 +1178,15 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             return full_refresh
 
         def compact_refresh(minv, rho_scale, needmask):
-            if int(needmask.sum()) > K:
-                return full_refresh(minv, rho_scale, needmask)
+            n_need = int(needmask.sum())
+            if n_need > K:
+                return full_refresh(minv, rho_scale, needmask, n_need)
             idx = torch.argsort((~needmask).to(torch.int32), stable=True)[:K]
             sub = admm_pallas.masked_safe_refresh(
                 ns_stack, make_ns_weights(coef_l[idx])(rho_scale[idx]),
                 minv[idx], needmask[idx], warm_iters=settings.ns_warm_iters,
                 cold_iters=settings.ns_cold_iters,
-                bt=_tile_width(K, settings.pallas_tile))
+                bt=_tile_width(K, settings.pallas_tile), n_need=n_need)
             out = minv.clone()
             out[idx] = sub
             return out

@@ -225,45 +225,52 @@ admm_chunk.launches = 0
 
 
 def ns_fused(stack, w, X_prev, need, *, n_iter: int, cold: bool,
-             bt: int = 8):
+             bt: int = 8, n_need=None):
     """Masked batched inverse refresh. stack (7,nz,nz) shared structure
     matrices; w (B,8) per-problem weights; X_prev (B,nz,nz); need (B,)
     bool. Returns (X, residual): rows with need=False pass through and
     read residual 0. ``cold`` starts from M'/(||M||_1 ||M||_inf) instead
-    of X_prev. ``bt`` has no effect."""
+    of X_prev. ``n_need``, the count of ``need`` where the caller knows it
+    (None: B), sizes the kernel's grid and work buffers; a needy row beyond
+    it reads NaN. The twin ignores it. ``bt`` has no effect."""
     if not _dispatch("ns_fused", X_prev):
         return ns_fused_ref(stack, w, X_prev, need, n_iter=n_iter, cold=cold)
-    return _ns_cuda(ns_fused, stack, w, X_prev, need, n_iter, cold)
+    return _ns_cuda(ns_fused, stack, w, X_prev, need, n_iter, cold, n_need)
 
 
 ns_fused.launches = 0
 
 
-def newton_schulz_inverse(M, X0, n_iter: int = 4, bt: int = 8):
+def newton_schulz_inverse(M, X0, n_iter: int = 4, bt: int = 8,
+                          n_need=None):
     """Batched inverse refinement X <- X(2I - MX), ``n_iter`` times, on
-    M, X0 (B,nz,nz). Returns (X, residual (B,) = ||I - MX||_inf).
-    ``bt`` has no effect."""
+    M, X0 (B,nz,nz). Returns (X, residual (B,) = ||I - MX||_inf). Every
+    problem is needy, so ``n_need`` is None or B. ``bt`` has no effect."""
     if not _dispatch("newton_schulz_inverse", X0):
         return newton_schulz_inverse_ref(M, X0, n_iter)
-    return _ns_cuda(newton_schulz_inverse, M, None, X0, None, n_iter, False)
+    return _ns_cuda(newton_schulz_inverse, M, None, X0, None, n_iter, False,
+                    n_need)
 
 
 newton_schulz_inverse.launches = 0
 
 
 def masked_safe_refresh(ns_stack, w, X_prev, need, *, warm_iters: int,
-                        cold_iters: int, bt: int = 8):
+                        cold_iters: int, bt: int = 8, n_need=None):
     """Warm masked refresh; rows whose warm residual is bad (> 1e-2 or
     non-finite) are zeroed and cold-restarted (see the JAX package's
-    ``masked_safe_refresh`` for why they are zeroed first)."""
+    ``masked_safe_refresh`` for why they are zeroed first). ``n_need``
+    goes to the warm ``ns_fused``; the cold one gets the bad rows' count,
+    read at the one host sync this function makes."""
     Xw, r = ns_fused(ns_stack, w, X_prev, need, n_iter=warm_iters,
-                     cold=False, bt=bt)
+                     cold=False, bt=bt, n_need=n_need)
     bad = need & ((r > 1e-2) | ~torch.isfinite(r))
     Xw = torch.where(bad[:, None, None], 0.0, Xw)
-    if not bool(bad.any()):
+    n_bad = int(bad.sum())
+    if not n_bad:
         return Xw
     return ns_fused(ns_stack, w, Xw, bad, n_iter=cold_iters, cold=True,
-                    bt=bt)[0]
+                    bt=bt, n_need=n_bad)[0]
 
 
 def safe_inverse(M, X_prev, prev_ok, warm_iters: int, cold_iters: int,
@@ -284,8 +291,19 @@ def safe_inverse(M, X_prev, prev_ok, warm_iters: int, cold_iters: int,
 # ---------------------------------------------------------------------------
 
 _C_TYPES = {torch.float32: "f32", torch.float64: "f64"}
-_NS_TILE = 64  # output tile edge of the GEMM in csrc/ns_inverse.cu (BM, BN)
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def ns_tile(rows: int, n: int) -> int:
+    """Output-tile rows of the Newton–Schulz GEMM (``csrc/ns_inverse.cu``)
+    for a call on ``rows`` needy problems of size n: 128 (128x256 tiles in
+    fp32, one block per SM; 128x64 in fp64) when those tiles give every SM
+    of the card a block (rows * ceil(n/128) * ceil(n/256) >= 132: 66 rows
+    at n=256), else 64 (64x64 tiles, several blocks per SM). The main
+    path's refreshes hold at most 61 needy rows or at least 444 (PERF.md,
+    sections 5 and 6)."""
+    return 128 if rows * (-(-n // 128)) * (-(-n // 256)) >= _SMS else 64
 
 
 def _chunk_lib():
@@ -304,7 +322,7 @@ def _ns_lib():
     if not getattr(lib, "_typed", False):
         for suffix in _C_TYPES.values():
             fn = getattr(lib, f"ns_run_{suffix}")
-            fn.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+            fn.argtypes = [_P] * 14 + [_I] * 6 + [_P]
             fn.restype = _I
         lib._typed = True
     return lib
@@ -373,10 +391,11 @@ def _admm_chunk_cuda(minv, coef, qbar, lbar, ubar, rho, x, y, z, w7, a0,
     return xo, yo, zo, stats
 
 
-def _ns_cuda(entry, mat, w, X_prev, need, n_iter, cold):
+def _ns_cuda(entry, mat, w, X_prev, need, n_iter, cold, n_need):
     """``ns_fused`` (mat = the (7,nz,nz) stack, w and need given) or
     ``newton_schulz_inverse`` (mat = the per-problem M, w = need = None)
-    through the one C entry point of ``csrc/ns_inverse.cu``."""
+    through the one C entry point of ``csrc/ns_inverse.cu``. The work
+    buffers hold ``n_need`` slots (B when None)."""
     name = entry.__name__
     dt = _dtype_of(name, X_prev)
     B, nz = X_prev.shape[0], X_prev.shape[1]
@@ -390,25 +409,26 @@ def _ns_cuda(entry, mat, w, X_prev, need, n_iter, cold):
     _check(name, X_prev, specs)
     if n_iter < 0:
         raise ValueError(f"{name}: n_iter={n_iter} < 0")
+    cap = B if n_need is None else int(n_need)
+    if not 0 <= cap <= B or (not fused and cap != B):
+        raise ValueError(f"{name}: n_need={n_need} for {B} rows")
     fn = getattr(_ns_lib(), f"ns_run_{_C_TYPES[dt]}")
     kw = dict(dtype=dt, device=X_prev.device)
     out = torch.empty_like(X_prev)
     res = torch.empty((B,), **kw)
-    work = torch.empty((3, B, nz, nz), **kw)
-    tiles = -(-nz // _NS_TILE)
-    partial = torch.empty((B, tiles * tiles), **kw)
-    denom = torch.empty((B,), **kw)
-    null = 0
-    ptrs = [mat.data_ptr() if fused else null,
-            w.data_ptr() if fused else null,
-            null if fused else mat.data_ptr(),
-            X_prev.data_ptr(), need.data_ptr() if fused else null,
-            out.data_ptr(), res.data_ptr(), work.data_ptr(),
-            work[1].data_ptr(), work[2].data_ptr(), partial.data_ptr(),
-            denom.data_ptr()]
+    work = torch.empty((4 if fused else 3, cap, nz, nz), **kw)
+    mscr, w1, w2, tmp = ([work[0]] if fused else [None]) + list(work[-3:])
+    # residual partials per slot: the 64x64 tile's count, the most of any
+    partial = torch.empty((cap, (-(-nz // 64)) ** 2), **kw)
+    denom = torch.empty((cap,), **kw)
+    ibuf = torch.empty((2 * B + 1,), dtype=torch.int32, device=X_prev.device)
+    ptr = lambda t: 0 if t is None or t.numel() == 0 else t.data_ptr()
+    ptrs = [mat if fused else None, w, None if fused else mat, X_prev, need,
+            out, res, mscr, w1, w2, tmp, partial, denom, ibuf]
     stream = torch.cuda.current_stream(X_prev.device).cuda_stream
     with torch.cuda.device(X_prev.device):
-        err = fn(*ptrs, B, nz, int(n_iter), int(bool(cold)), stream)
+        err = fn(*map(ptr, ptrs), B, cap, nz, int(n_iter), int(bool(cold)),
+                 int(ns_tile(cap, nz) == 128), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
                            f"(cudaError {err})")

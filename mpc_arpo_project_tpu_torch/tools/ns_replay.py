@@ -1,0 +1,115 @@
+"""Replay saved Newton–Schulz kernel calls on another tree's kernels and
+compare their results bit for bit.
+
+    python3 chip_smoke.py --ns-dump FILE
+    python3 mpc_arpo_project_tpu_torch/tools/ns_replay.py --tree DIR FILE
+
+The first command saves every ``ns_fused`` and ``newton_schulz_inverse``
+kernel call of chip_smoke's comparisons: its inputs (fp32, cast to the
+call's type as chip_smoke casts them), keywords, the sha256 of its X (NaNs
+made one NaN) and its residuals. The second imports
+``mpc_arpo_project_tpu_torch`` from ``DIR`` (another checkout, e.g. an
+older commit), runs each call through that tree's kernel on the card, and
+reports, per call, whether X and the residuals are identical. Keywords the
+other tree's entry does not take (``n_need``) are dropped. Each call is
+also timed on that tree (median of 5 CUDA-event runs after one warm-up),
+so two trees' kernels can be timed on the same inputs in one session.
+Exits 1 if any call differs, 2 without a card. Needs torch and a CUDA
+device, nothing else.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import os
+import statistics
+import sys
+
+
+def digest(t):
+    """sha256 of a tensor's bytes, every NaN made the same NaN first."""
+    import torch
+
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _same(a, b):
+    import torch
+
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _time_ms(fn, n=5):
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", required=True,
+                    help="checkout whose mpc_arpo_project_tpu_torch runs")
+    ap.add_argument("dump", help="file written by chip_smoke.py --ns-dump")
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm_pallas
+
+    if not os.path.abspath(admm_pallas.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {admm_pallas.__file__}, not from {tree}")
+    if not torch.cuda.is_available():
+        print("ns_replay: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls = torch.load(args.dump, weights_only=False)["calls"]
+    dev = torch.device("cuda")
+    moved = {}
+    bad = 0
+    for c in calls:
+        entry = getattr(admm_pallas, c["entry"])
+        dt = getattr(torch, c["dtype"])
+        a = []
+        for t in c["args"]:
+            key = (id(t), dt)
+            if key not in moved:
+                v = t.to(dev)
+                moved[key] = v.to(dt) if v.is_floating_point() else v
+            a.append(moved[key])
+        kw = dict(c["kw"])
+        if "n_need" in inspect.signature(entry).parameters:
+            kw["n_need"] = c["n_need"]
+        x, r = entry(*a, **kw)
+        torch.cuda.synchronize()
+        same_x = digest(x) == c["x_digest"]
+        r_cpu = r.cpu()
+        same_r = _same(r_cpu, c["res"])
+        bad += not (same_x and same_r)
+        del x, r
+        ms = _time_ms(lambda: entry(*a, **kw))
+        print(f"{c['label']}: X {'identical' if same_x else 'DIFFERS'}, "
+              f"residuals {'identical' if same_r else 'DIFFER'}"
+              + ("" if same_r else " (max |diff| "
+                 f"{float((r_cpu - c['res']).abs().nan_to_num().max()):.3e})")
+              + f"; {ms:.3f} ms", flush=True)
+    print(f"ns_replay: {len(calls) - bad} of {len(calls)} calls bit-identical "
+          f"on {admm_pallas.__file__}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -152,17 +152,30 @@ def test_build_M_matches_jax(setup, inputs):
                                atol=1e-13 * float(np.abs(jM).max()))
 
 
+@pytest.fixture(scope="module")
+def jax_ns_fused(inputs):
+    """The JAX package's ``ns_fused`` (interpret mode) on the fixture, warm
+    (3 iterations) and cold (45), each computed once."""
+    ni = inputs
+    args = [jnp.asarray(ni[k].numpy()) for k in ("stack", "w", "X_warm",
+                                                   "need")]
+    return {cold: jpal.ns_fused(*args, n_iter=45 if cold else 3, cold=cold,
+                                interpret=True) for cold in (False, True)}
+
+
+def _count(need, n_need):
+    """``n_need`` of a parametrised case: None, or the exact count."""
+    return None if n_need is None else int(need.sum())
+
+
+@pytest.mark.parametrize("n_need", [None, "count"])
 @pytest.mark.parametrize("cold", [False, True])
-def test_ns_fused_ref_matches_jax(inputs, cold):
+def test_ns_fused_ref_matches_jax(inputs, jax_ns_fused, cold, n_need):
     ni = inputs
     n_iter = 45 if cold else 3
     xt, rt = tpal.ns_fused_ref(ni["stack"], ni["w"], ni["X_warm"], ni["need"],
                                n_iter=n_iter, cold=cold)
-    xj, rj = jpal.ns_fused(jnp.asarray(ni["stack"].numpy()),
-                           jnp.asarray(ni["w"].numpy()),
-                           jnp.asarray(ni["X_warm"].numpy()),
-                           jnp.asarray(ni["need"].numpy()), n_iter=n_iter,
-                           cold=cold, interpret=True)
+    xj, rj = jax_ns_fused[cold]
     need = ni["need"]
     ok, err = _row_close(xt.numpy()[need], np.asarray(xj)[need.numpy()], TOL)
     assert ok, err
@@ -170,29 +183,58 @@ def test_ns_fused_ref_matches_jax(inputs, cold):
     assert (rt[~need] == 0).all()
     assert (rt[need] < 1e-8).all()
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0, atol=TOL)
-    # the dispatching entry is the twin on the CPU
+    # the dispatching entry is the twin on the CPU, with or without n_need
     xe, re = tpal.ns_fused(ni["stack"], ni["w"], ni["X_warm"], ni["need"],
-                           n_iter=n_iter, cold=cold)
+                           n_iter=n_iter, cold=cold,
+                           n_need=_count(need, n_need))
     assert torch.equal(xe, xt) and torch.equal(re, rt)
 
 
-def test_newton_schulz_inverse_ref_matches_jax(inputs):
+@pytest.fixture(scope="module")
+def jax_ns_inverse(inputs):
+    M = inputs["M"]
+    X0 = tpal.cold_start_inverse(M)
+    return jpal.newton_schulz_inverse(jnp.asarray(M.numpy()),
+                                      jnp.asarray(X0.numpy()), n_iter=45,
+                                      interpret=True)
+
+
+@pytest.mark.parametrize("n_need", [None, "count"])
+def test_newton_schulz_inverse_ref_matches_jax(inputs, jax_ns_inverse,
+                                               n_need):
     M = inputs["M"]
     X0 = tpal.cold_start_inverse(M)
     xt, rt = tpal.newton_schulz_inverse_ref(M, X0, n_iter=45)
-    xj, rj = jpal.newton_schulz_inverse(jnp.asarray(M.numpy()),
-                                        jnp.asarray(X0.numpy()), n_iter=45,
-                                        interpret=True)
+    xj, rj = jax_ns_inverse
     ok, err = _row_close(xt.numpy(), np.asarray(xj), TOL)
     assert ok, err
     assert float(rt.max()) < 1e-10
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0, atol=TOL)
-    xs = tpal.safe_inverse(M, X0, torch.zeros(M.shape[0], dtype=torch.bool),
-                           warm_iters=3, cold_iters=45)
+    every = torch.ones(M.shape[0], dtype=torch.bool)
+    xe, re = tpal.newton_schulz_inverse(M, X0, n_iter=45,
+                                        n_need=_count(every, n_need))
+    assert torch.equal(xe, xt) and torch.equal(re, rt)
+    xs = tpal.safe_inverse(M, X0, ~every, warm_iters=3, cold_iters=45)
     assert torch.equal(xs, xt)
 
 
-def test_masked_safe_refresh_recovers_and_passes_through(setup, inputs):
+@pytest.mark.parametrize("rows, n, tile", [
+    (1, 256, 64), (3, 256, 64), (32, 256, 64), (61, 256, 64),
+    (65, 256, 64), (66, 256, 128), (128, 256, 128), (445, 256, 128),
+    (1024, 256, 128), (8, 201, 64), (65, 201, 64), (66, 201, 128),
+    (72, 201, 128), (131, 40, 64), (132, 40, 128), (0, 256, 64)])
+def test_ns_tile_choice(rows, n, tile):
+    """The Newton–Schulz GEMM takes its large tile (128x256 in fp32, one
+    block per SM) when a call's needy rows give each of the 132 SMs a
+    block (66 rows at the flagship's n=256; the main path's refreshes hold
+    at most 61 needy rows or at least 444, PERF.md section 5), else the
+    64x64 tile."""
+    assert tpal.ns_tile(rows, n) == tile
+
+
+@pytest.mark.parametrize("n_need", [None, "count"])
+def test_masked_safe_refresh_recovers_and_passes_through(setup, inputs,
+                                                         n_need):
     """The poisoned case of ``tests/test_admm_pallas.py``: a 1e200-scaled
     and a NaN warm start on needy rows recover through the cold retry as
     in the JAX package; a non-finite inverse on a row WITHOUT need passes
@@ -203,7 +245,8 @@ def test_masked_safe_refresh_recovers_and_passes_through(setup, inputs):
     X_prev[2] = torch.nan
     need = torch.tensor([True, False, True, False] * 2)
     kw = dict(warm_iters=3, cold_iters=45)
-    xt = tpal.masked_safe_refresh(ni["stack"], ni["w"], X_prev, need, **kw)
+    xt = tpal.masked_safe_refresh(ni["stack"], ni["w"], X_prev, need, **kw,
+                                  n_need=_count(need, n_need))
     xj = jpal.masked_safe_refresh(
         jnp.asarray(ni["stack"].numpy()), jnp.asarray(ni["w"].numpy()),
         jnp.asarray(X_prev.numpy()), jnp.asarray(need.numpy()), **kw)
@@ -218,7 +261,7 @@ def test_masked_safe_refresh_recovers_and_passes_through(setup, inputs):
     poisoned[1] = torch.inf
     poisoned[3] = torch.nan
     xp, rp = tpal.ns_fused(ni["stack"], ni["w"], poisoned, need, n_iter=3,
-                           cold=True)
+                           cold=True, n_need=_count(need, n_need))
     assert torch.equal(xp[1], poisoned[1]) and torch.isnan(xp[3]).all()
     assert (rp[~need] == 0).all() and torch.isfinite(xp[need]).all()
 

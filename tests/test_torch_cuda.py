@@ -209,6 +209,139 @@ def test_cuda_newton_schulz_inverse_matches_twin(gpu, pallas):
     assert float(rk.max()) < 1e-10
 
 
+def _same(a, b):
+    """Bit for bit, NaN where NaN (torch.equal calls two NaNs unequal)."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _ns_case(kernel, args, kw, gpu, n_need, rows=None):
+    """One kernel call on the card (launch counted) against its twin on
+    the card: the rows in ``rows`` (default: every finite twin row) to
+    1e-10 per row, their residuals to 1e-10; returns the kernel's result."""
+    plain = (admm_pallas.ns_fused_ref if kernel is admm_pallas.ns_fused
+             else admm_pallas.newton_schulz_inverse_ref)
+    ag = tuple(v.to(gpu) for v in args)
+    xr, rr = plain(*ag, **kw)
+    n0 = kernel.launches
+    xk, rk = kernel(*ag, **kw, n_need=n_need)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    if rows is None:
+        rows = torch.isfinite(xr).flatten(1).all(1)
+    assert _rows_within(xk, xr, rows, TOL)
+    torch.testing.assert_close(rk[rows], rr[rows], rtol=0.0, atol=TOL)
+    return xk, rk
+
+
+def _rand_ns(n, B, seed):
+    """A (7, n, n) stack, (B, 8) weights and the (B, n, n) M they make:
+    a well-conditioned symmetric base plus six small symmetric terms."""
+    rng = np.random.default_rng(seed)
+    sym = lambda a: (a + a.T) / (2.0 * np.sqrt(n))
+    base = sym(rng.standard_normal((n, n))) + 3.0 * np.eye(n)
+    stack = np.stack([base] + [0.1 * sym(rng.standard_normal((n, n)))
+                               for _ in range(6)])
+    w = np.zeros((B, 8))
+    w[:, 0] = 1.0
+    w[:, 1:7] = rng.uniform(0.2, 1.0, (B, 6))
+    st, wt = torch.as_tensor(stack), torch.as_tensor(w)
+    return st, wt, admm_pallas._stack_matrix(st, wt).contiguous()
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("needy", [8, 72])
+def test_cuda_ns_fused_both_tiles(gpu, pallas, cold, needy):
+    """Nine copies of the fixture's 8 problems (n=201): 8 needy rows with
+    n_need=8 take the 64x64 tile, 72 the 128-row tile; both against the
+    twin, and n_need=None (72 slots, the 128-row tile) gives the same bits
+    as n_need=count."""
+    B = 72
+    w = pallas["w"].repeat(9, 1)
+    X = admm_pallas.cold_start_inverse(pallas["M"]).repeat(9, 1, 1) \
+        if cold else pallas["X_warm"].repeat(9, 1, 1)
+    need = torch.zeros(B, dtype=torch.bool)
+    need[torch.randperm(B, generator=torch.Generator().manual_seed(needy))
+         [:needy]] = True
+    assert admm_pallas.ns_tile(needy, 201) == (64 if needy == 8 else 128)
+    args = (pallas["stack"], w, X, need)
+    kw = dict(n_iter=45 if cold else 3, cold=cold)
+    xk, rk = _ns_case(admm_pallas.ns_fused, args, kw, gpu, needy,
+                      rows=need.to(gpu))
+    xn, rn = admm_pallas.ns_fused(*(v.to(gpu) for v in args), **kw)
+    assert _same(xn, xk) and _same(rn, rk)
+    assert _same(xk[~need], X[~need].to(gpu)) and (rk[~need] == 0).all()
+
+
+@pytest.mark.parametrize("B", [8, 72])
+def test_cuda_newton_schulz_inverse_both_tiles(gpu, pallas, B):
+    M = pallas["M"].repeat(B // 8, 1, 1)
+    X0 = admm_pallas.cold_start_inverse(M)
+    assert admm_pallas.ns_tile(B, 201) == (64 if B == 8 else 128)
+    xk, rk = _ns_case(admm_pallas.newton_schulz_inverse, (M, X0),
+                      dict(n_iter=45), gpu, B)
+    xn, rn = admm_pallas.newton_schulz_inverse(M.to(gpu), X0.to(gpu), 45)
+    assert _same(xn, xk) and _same(rn, rk)
+    assert float(rk.max()) < 1e-10
+
+
+@pytest.mark.parametrize("n", [40, 201])
+@pytest.mark.parametrize("n_iter", [0, 2, 45])
+def test_cuda_ns_ragged_and_n_iter(gpu, n, n_iter):
+    """Random problems at n=40 (16-byte B copies) and n=201 (element
+    copies; both ragged against every tile), warm and cold, n_iter 0 (the
+    residual of the start alone) to 45; newton_schulz_inverse on the same M."""
+    B = 6
+    stack, w, M = _rand_ns(n, B, seed=n + n_iter)
+    X_warm = torch.linalg.inv(M * 1.01).contiguous()
+    need = torch.tensor([True, False, True, True, False, True])
+    for cold in (False, True):
+        for n_need in (None, 4):
+            _ns_case(admm_pallas.ns_fused, (stack, w, X_warm, need),
+                     dict(n_iter=n_iter, cold=cold), gpu, n_need,
+                     rows=need.to(gpu))
+    _ns_case(admm_pallas.newton_schulz_inverse, (M, X_warm),
+             dict(n_iter=n_iter), gpu, None)
+
+
+def test_cuda_ns_fused_no_need_passes_through(gpu, pallas):
+    """No row needy: every row, +inf and NaN ones too, passes through bit
+    for bit with residual 0, with n_need=0 (no product at all) or None."""
+    X = pallas["X_warm"].clone()
+    X[1] = torch.inf
+    X[4] = torch.nan
+    need = torch.zeros(8, dtype=torch.bool)
+    args = tuple(v.to(gpu) for v in (pallas["stack"], pallas["w"], X, need))
+    for n_need in (0, None):
+        for cold in (False, True):
+            xk, rk = admm_pallas.ns_fused(*args, n_iter=3, cold=cold,
+                                          n_need=n_need)
+            assert _same(xk, args[2]) and (rk == 0).all()
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_cuda_ns_fused_poisoned_rows(gpu, pallas, cold):
+    """+inf and NaN inverses on needy rows (non-finite after a warm
+    refresh, finite after a cold one, which ignores X_prev) and on rows
+    without need (passed through bit for bit)."""
+    X = pallas["X_warm"].clone()
+    need = pallas["need"]  # rows 0 2 3 5 6 needy
+    X[0] = torch.inf
+    X[2] = torch.nan
+    X[1] = torch.inf
+    X[4] = torch.nan
+    args = (pallas["stack"], pallas["w"], X, need)
+    kw = dict(n_iter=45 if cold else 3, cold=cold)
+    held = need.clone()
+    if not cold:
+        held[[0, 2]] = False
+    xk, rk = _ns_case(admm_pallas.ns_fused, args, kw, gpu,
+                      int(need.sum()), rows=held.to(gpu))
+    fin = torch.isfinite(xk).flatten(1).all(1).cpu()
+    assert bool(fin[0]) == cold and bool(fin[2]) == cold
+    assert _same(xk[~need], X[~need].to(gpu)) and (rk[~need] == 0).all()
+
+
 def test_cuda_pallas_wrappers_reject_what_the_kernels_do_not_take(gpu,
                                                                   pallas):
     """No fallback: fp16, or a tensor left on the CPU, raises at each
