@@ -14,7 +14,10 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    on real inputs of the flagship engine (the first solve, and the solve
    after five control steps), in fp32 and fp64, each timed by CUDA events
    beside its plain twin:
-   - ``eig_chunk`` ('eig' engine);
+   - ``eig_chunk`` ('eig' engine), also on the after-5-steps chunk cut to
+     11 live slots (the costliest class of the chunk census), with its
+     bound and HBM floor, and a sweep of its slots per block S over live
+     counts (the evidence for ``admm_eig.eig_group``);
    - ``admm_chunk``, ``ns_fused`` (warm and cold, on a need mask that
      includes rows poisoned with inf and NaN; the full-width cold first
      refresh; 3 needy rows of a 32-row call, the costliest class of the
@@ -34,9 +37,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    (the fp64 oracle mode) in fp64; each main path reports every kernel's
    launch count (set to 0 just before the path, read just after),
    alive-solves/s, the status mix, the mean ADMM iterations per step, a
-   per-step split from CUDA events and the peak device memory; 'pallas'
-   also a census of its ``ns_fused`` calls by (rows, warm/cold, needy
-   count);
+   per-step split from CUDA events and the peak device memory; 'eig'
+   also a census of its ``eig_chunk`` calls by live count, 'pallas' a
+   census of its ``ns_fused`` calls by (rows, warm/cold, needy count);
 8. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination and ``done_iters``, and trajectories within 1e-6; for
@@ -45,8 +48,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 9. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
 
-With ``--ns-dump FILE`` it also saves every Newton–Schulz kernel call of
-phase 3 (inputs, X's digest, residuals) for
+With ``--ns-dump FILE`` it also saves every ``eig_chunk`` and
+Newton–Schulz kernel call of phase 3's comparisons (inputs, keywords, the
+digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
@@ -203,6 +207,12 @@ def _chunk_err(out, ref, parts=False):
     return e if parts else e.amax(1)
 
 
+def _plain(k):
+    """A kernel call's keywords without those that only steer the CUDA
+    kernel (``eig_chunk``'s ``n_live`` and ``group``), for its twin."""
+    return {kk: v for kk, v in k.items() if kk not in ("n_live", "group")}
+
+
 def _launch(kernel, a, k, label):
     """Call a kernel entry and check that it counted exactly one launch
     (so the result really came from the CUDA kernel)."""
@@ -214,10 +224,11 @@ def _launch(kernel, a, k, label):
     return out
 
 
-def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
+def compare_kernel(kernel, plain, args, kw, dtype, tol, label, record=None):
     """Run a chunk kernel (``eig_chunk`` or ``admm_chunk``) and its twin on
     the same inputs in ``dtype``; returns (max abs err, summary dict).
-    Raises if they disagree beyond ``tol``.
+    Raises if they disagree beyond ``tol``. An ``eig_chunk`` call goes to
+    ``record`` (a ``CallRecord``) when one is given.
 
     Deviation per row: see ``_chunk_err``. fp64 holds every not-done row
     to ``tol``. In fp32 a row passes within ``tol`` of the plain version, or
@@ -232,7 +243,9 @@ def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
 
     a, k = _cast(args, kw, dtype)
     ker = _launch(kernel, a, k, label)
-    ref = plain(*a, **k)
+    if record is not None:
+        record.add_chunk(args, kw, dtype, label, ker)
+    ref = plain(*a, **_plain(k))
     live = ~k["done"]
     n_live = int(live.sum())
     err = _chunk_err(ker, ref)[live]
@@ -250,7 +263,7 @@ def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
         ok = not bool(over.any())
     else:
         a64, k64 = _cast(args, kw, torch.float64)
-        ref64 = plain(*a64, **k64)
+        ref64 = plain(*a64, **_plain(k64))
         e_ker = _chunk_err(ker, ref64)[live]
         e_ref = _chunk_err(ref, ref64)[live]
         worse = over & (e_ker > 4.0 * e_ref + tol)
@@ -280,29 +293,45 @@ def compare_kernel(kernel, plain, args, kw, dtype, tol, label):
     return max_abs, summary
 
 
-class NSRecord:
-    """The Newton–Schulz kernel calls of the comparisons (``--ns-dump``):
-    inputs (one CPU copy each), keywords, the digest of X and the
-    residuals, for ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``."""
+class CallRecord:
+    """The kernel calls of the comparisons that ``--ns-dump`` saves for
+    ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``: inputs (one CPU copy
+    each, before the cast to the call's type), keywords and what the kernel
+    returned (Newton–Schulz: the digest of X and the residuals; eig_chunk:
+    the digests of x, y, z and stats)."""
 
     def __init__(self):
         self.calls, self._cpu = [], {}
 
+    def _keep(self, v):
+        import torch
+
+        if not torch.is_tensor(v):
+            return v
+        return self._cpu.setdefault(id(v), (v, v.cpu()))[1]
+
     def add(self, kernel, args, kw, dtype, n_need, label, xk, rk):
         from mpc_arpo_project_tpu_torch.tools.ns_replay import digest
 
-        keep = lambda t: self._cpu.setdefault(id(t), (t, t.cpu()))[1]
         self.calls.append(dict(
-            label=label, entry=kernel.__name__, args=tuple(map(keep, args)),
-            kw=dict(kw), n_need=n_need, dtype=str(dtype)[6:],
-            x_digest=digest(xk), res=rk.cpu()))
+            label=label, entry=kernel.__name__,
+            args=tuple(map(self._keep, args)), kw=dict(kw), n_need=n_need,
+            dtype=str(dtype)[6:], x_digest=digest(xk), res=rk.cpu()))
+
+    def add_chunk(self, args, kw, dtype, label, outs):
+        from mpc_arpo_project_tpu_torch.tools.ns_replay import digest
+
+        self.calls.append(dict(
+            label=label, entry="eig_chunk", args=tuple(map(self._keep, args)),
+            kw={k: self._keep(v) for k, v in kw.items()},
+            dtype=str(dtype)[6:], digests=[digest(o) for o in outs]))
 
 
 def compare_inverse(kernel, plain, args, kw, dtype, tol, label, need=None,
                     n_need=None, record=None):
     """Run a Newton–Schulz entry (given ``n_need``) and its twin on the
     same inputs in ``dtype``; returns (max abs err on the held rows,
-    summary dict). The kernel's call goes to ``record`` (an ``NSRecord``)
+    summary dict). The kernel's call goes to ``record`` (a ``CallRecord``)
     when one is given.
 
     With ``need`` (``ns_fused``: args = stack, w, X_prev, need), rows
@@ -422,7 +451,8 @@ def eig_chunk_bound(args, kw, outs):
     """One eig chunk: per live problem-iteration, A'v (A_c and the s-part
     gather/scatter), the eigenbasis solve with the rank-K Woodbury term,
     and Av; the end-of-chunk residuals and certificates (2 Av, 2 A'v,
-    2 P v)."""
+    2 P v). Beside it, ``eig_chunk_floor`` is the HBM floor of the kernel's
+    design, which reads each slot's T^-1 every iteration."""
     x, tinv, gsel_s = args[7], args[1], args[16]
     B, nz = x.shape
     m, K, gw = args[8].shape[1], tinv.shape[1], gsel_s.shape[1]
@@ -432,6 +462,16 @@ def eig_chunk_bound(args, kw, outs):
     end = 4 * a_mv + 2 * nz * nz
     flops = 2.0 * live * (kw["n_iter"] * it + end)
     return _bound(flops, _bytes(list(args) + list(outs), live / B, B))
+
+
+def eig_chunk_floor(args, kw):
+    """The HBM floor of ``csrc/eig_chunk.cu``: each live slot's T^-1 (K x K)
+    streamed once per iteration (25 x live x K^2 x 4 bytes in fp32, 0.50 ms
+    at 1024 live slots), the rest of the chunk's bytes being L2 hits."""
+    tinv = args[1]
+    live = int((~kw["done"]).sum())
+    return (kw["n_iter"] * live * tinv[0].numel() * tinv.element_size()
+            / HBM_BYTES_S * 1e3)
 
 
 def admm_chunk_bound(args, kw, outs):
@@ -514,33 +554,98 @@ def time_ns_case(label, kernel, plain, args, kw, n_need, M, n=20):
 # phases
 # ---------------------------------------------------------------------------
 
-def check_eig_kernel(engine, B):
+# the costliest live class of the 'eig' main path's chunk census (PERF.md
+# section 5: chunks of 1-32 live slots, 10.6 on average, 47% of the chunk
+# span on the parent kernel), timed beside the 1024-slot chunk
+COSTLY_LIVE = 11
+# live counts of the sweep over slots per block that sets eig_group's
+# policy (and the chunk's own 1024)
+SWEEP_LIVE = (11, 32, 128, 192, 264, 384, 528, 768)
+
+
+def _with_live(args, kw, n_live):
+    """``kw`` with all but ``n_live`` of the chunk's live slots marked done:
+    each combo group keeps its first live slots (the solver's live-first
+    packing), in proportion to its live count; ``n_live`` set to match."""
+    import torch
+
+    done, bt = kw["done"], kw["bt"]
+    combo = args[0].long().repeat_interleave(bt)
+    live = ~done
+    total = int(live.sum())
+    keep = torch.zeros_like(live)
+    left = min(n_live, total)
+    for c in range(int(combo.max()) + 1):
+        idx = torch.nonzero(live & (combo == c)).squeeze(1)
+        q = min(left, -(-idx.numel() * n_live // total))
+        keep[idx[:q]] = True
+        left -= q
+    return dict(kw, done=~keep, n_live=int(keep.sum()))
+
+
+def check_eig_kernel(engine, B, record=None):
+    """``eig_chunk`` against its twin on the first solve's and the
+    after-5-steps chunk (all live slots) and on the after-5-steps chunk cut
+    to the census's costliest live class, in fp32 and fp64 (the calls go to
+    ``record`` when one is given); timed at both live counts beside its
+    twin, bound and HBM floor; then a sweep of the slots per block S over
+    live counts, which ``admm_eig.eig_group``'s policy follows. Returns the
+    JSON entry (without launches)."""
     import torch
     from mpc_arpo_project_tpu_torch.ops import admm_eig
 
     sets = capture_chunks(engine, B, steps_before=5, seed=1)
-    max_abs = 0.0
-    for label, (a, k) in zip(("first solve", "after 5 steps"), sets):
-        log(f"eig_chunk vs plain, {label}: {a[0].shape[0]} tiles of "
-            f"bt={k['bt']}, {int((~k['done']).sum())} live slots, "
-            f"|tinv|max={float(a[1].abs().max()):.3e}")
-        err32, _ = compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref,
-                                  a, k, torch.float32, 1e-4, f"fp32 {label}")
-        compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref, a, k,
-                       torch.float64, 1e-10, f"fp64 {label}")
-        max_abs = max(max_abs, err32)
     a, k = sets[1]
-    ms = time_ms(lambda: admm_eig.eig_chunk(*a, **k))
-    plain_ms = time_ms(lambda: admm_eig.eig_chunk_ref(*a, **k))
-    a64, k64 = _cast(a, k, torch.float64)
-    ms64 = time_ms(lambda: admm_eig.eig_chunk(*a64, **k64))
-    plain_ms64 = time_ms(lambda: admm_eig.eig_chunk_ref(*a64, **k64))
-    bound_ms, bound_by = eig_chunk_bound(a, k, admm_eig.eig_chunk(*a, **k))
-    log(f"eig_chunk, 25 iterations, after-5-steps inputs "
-        f"({int((~k['done']).sum())} live slots): fp32 kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
-        f"fp64 kernel {ms64:.3f} ms, plain {plain_ms64:.3f} ms (median of "
-        f"20, CUDA events)")
+    sets.append((a, _with_live(a, k, COSTLY_LIVE)))
+    max_abs = 0.0
+    labels = ("first solve", "after 5 steps",
+              f"after 5 steps, {COSTLY_LIVE} live (the census's costliest "
+              "class)")
+    for label, (a, k) in zip(labels, sets):
+        log(f"eig_chunk vs plain, {label}: {a[0].shape[0]} tiles of "
+            f"bt={k['bt']}, {int((~k['done']).sum())} live slots (n_live "
+            f"{k.get('n_live')}), |tinv|max={float(a[1].abs().max()):.3e}")
+        err32, _ = compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref,
+                                  a, k, torch.float32, 1e-4, f"fp32 {label}",
+                                  record)
+        compare_kernel(admm_eig.eig_chunk, admm_eig.eig_chunk_ref, a, k,
+                       torch.float64, 1e-10, f"fp64 {label}", record)
+        max_abs = max(max_abs, err32)
+    timed = {}
+    for label, (a, k) in zip(labels[1:], sets[1:]):
+        live = int((~k["done"]).sum())
+        ms = time_ms(lambda: admm_eig.eig_chunk(*a, **k))
+        plain_ms = time_ms(lambda: admm_eig.eig_chunk_ref(*a, **_plain(k)))
+        a64, k64 = _cast(a, k, torch.float64)
+        ms64 = time_ms(lambda: admm_eig.eig_chunk(*a64, **k64))
+        plain_ms64 = time_ms(
+            lambda: admm_eig.eig_chunk_ref(*a64, **_plain(k64)))
+        bound_ms, bound_by = eig_chunk_bound(a, k, admm_eig.eig_chunk(*a, **k))
+        floor = eig_chunk_floor(a, k)
+        log(f"eig_chunk, 25 iterations, {label} ({live} live slots, S="
+            f"{admm_eig.eig_group(live, k['bt'], torch.float32)} fp32, "
+            f"{admm_eig.eig_group(live, k['bt'], torch.float64)} fp64): fp32 "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}), HBM floor of this design (T^-1 "
+            f"read every iteration) {floor:.3f} ms; fp64 kernel {ms64:.3f} "
+            f"ms, plain {plain_ms64:.3f} ms (median of 20, CUDA events)")
+        timed[label] = (ms, plain_ms, bound_ms, bound_by)
+
+    # slots per block against live count (median of 10 each)
+    a, k = sets[1]
+    n_all = int((~k["done"]).sum())
+    for dt in (torch.float32, torch.float64):
+        a_d, k_d = _cast(a, k, dt)
+        groups = [S for S in (1, 2, 4, 8)
+                  if S <= admm_eig.GROUP_CAP[dt] and k["bt"] % S == 0]
+        for live in SWEEP_LIVE + (n_all,):
+            kl = _with_live(a_d, k_d, live)
+            row = {S: time_ms(lambda: admm_eig.eig_chunk(*a_d, **dict(
+                kl, group=S)), 10) for S in groups}
+            log(f"  S sweep, {str(dt)[6:]}, {kl['n_live']} live: "
+                + ", ".join(f"S={S} {t:.3f} ms" for S, t in row.items())
+                + f"; policy S={admm_eig.eig_group(kl['n_live'], k['bt'], dt)}")
+    ms, plain_ms, bound_ms, bound_by = timed[labels[1]]
     return dict(name="eig_chunk", route="cuda",
                 source="mpc_arpo_project_tpu_torch/csrc/eig_chunk.cu",
                 replaces="mpc_arpo_project_tpu/ops/admm_eig.py:75",
@@ -803,9 +908,27 @@ def main_path(engine, B, seed):
             return out
         return call
 
+    def chunk_censused(fn):
+        """``eig_chunk`` recording each call's n_iter, live count (kept on
+        the device, read after the run) and CUDA-event span, which also
+        counts in the chunk span of the split."""
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans["eig_chunk"].append((e0, e1))
+            chunks.append((k["n_iter"], (~k["done"]).sum(), e0, e1))
+            return out
+        return call
+
+    chunks = []
     wrapped = {fn: timed(fn, getattr(mod, fn)) for _, fn in timed_fns}
     if mode == "pallas":
         wrapped["ns_fused"] = censused(mod.ns_fused)
+    if mode == "eig":
+        wrapped["eig_chunk"] = chunk_censused(mod.eig_chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _solver_calls(mode, **wrapped):
@@ -850,6 +973,7 @@ def main_path(engine, B, seed):
     split.update({label: ms[fn] / T for label, fn in timed_fns})
     split[rest_name] = (wall_ms - sum(ms.values())) / T
     rep_census = refresh_census(census, T, ms.get("masked_safe_refresh"))
+    ch_census = chunk_census(chunks, T, ms.get("eig_chunk"))
     return launches, dict(
         solve_mode=mode, dtype=str(engine.dtype)[6:], steps=T, batch=B,
         wall_s=wall, alive_steps=n_alive,
@@ -862,7 +986,39 @@ def main_path(engine, B, seed):
         launches=launches,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         **({"refresh_census": rep_census} if census else {}),
+        **({"chunk_census": ch_census} if chunks else {}),
     )
+
+
+_LIVE_BUCKETS = ((1, 32), (33, 128), (129, 512), (513, 1152))
+
+
+def chunk_census(calls, T, span_ms):
+    """Group the 'eig' main path's ``eig_chunk`` calls by live bucket:
+    calls, ms per step and per call, mean live count, the n_iter values
+    seen and the share of the chunk span; logs one line per bucket."""
+    groups = {}
+    for n_iter, live, e0, e1 in calls:
+        k = int(live)
+        b = next((lo, hi) for lo, hi in _LIVE_BUCKETS if k <= hi) if k \
+            else (0, 0)
+        g = groups.setdefault(b, [0, 0.0, 0, set()])
+        g[0] += 1
+        g[1] += e0.elapsed_time(e1)
+        g[2] += k
+        g[3].add(n_iter)
+    out = []
+    for (lo, hi), (n, t, k, iters) in sorted(groups.items()):
+        out.append(dict(live=f"{lo}-{hi}", calls_per_step=n / T,
+                        ms_per_step=t / T, ms_per_call=t / n,
+                        mean_live=k / n, n_iter=sorted(iters),
+                        share_of_chunk_span=t / span_ms if span_ms else None))
+        log(f"  chunk census: live {lo}-{hi}: {n / T:.2f} calls/step, "
+            f"{t / T:.3f} ms/step, {t / n:.3f} ms/call, mean live "
+            f"{k / n:.1f}, n_iter {sorted(iters)}, "
+            + (f"{100 * t / span_ms:.1f}% of the chunk span"
+               if span_ms else ""))
+    return out
 
 
 _NEED_BUCKETS = ((1, 1), (2, 8), (9, 32), (33, 128), (129, 512),
@@ -971,7 +1127,8 @@ def main() -> int:
                                 for n in libs) + ")")
     for name in libs:
         for line in _build.ptxas_log.get(name, "").splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 log(f"  ptxas [{name}]: {line.strip()}")
 
     # 3. kernels against plain at flagship shapes
@@ -984,12 +1141,13 @@ def main() -> int:
         f"K={eig_engine.prob.eig_YT.shape[1]}, 3gw="
         f"{pal_engine.prob.gsel.shape[1]}) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    entries = [check_eig_kernel(eig_engine, B)]
-    record = NSRecord() if dump else None
+    record = CallRecord() if dump else None
+    entries = [check_eig_kernel(eig_engine, B, record)]
     entries += check_pallas_kernels(pal_engine, B, record)
     if dump:
         torch.save({"calls": record.calls}, dump)
-        log(f"saved {len(record.calls)} Newton–Schulz calls to {dump}")
+        log(f"saved {len(record.calls)} eig_chunk and Newton–Schulz calls to "
+            f"{dump}")
         del record  # it holds the inputs on the card too
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 

@@ -4,7 +4,7 @@
 //   mpc_arpo_project_tpu/ops/admm_eig.py::_eig_chunk_kernel   (with_s=True)
 // and computes what its plain torch twin
 //   mpc_arpo_project_tpu_torch/ops/admm_eig.py::eig_chunk_ref
-// computes: n_iter OSQP iterations of one problem slot,
+// computes: n_iter OSQP iterations of each problem slot,
 //   rhs = sigma x - qbar + A'(rho z - y)
 //   xt  = W diag(dg) W' rhs  minus the rank-K debris Woodbury term through
 //         the slot's own T^-1
@@ -16,27 +16,58 @@
 // dinf, |dy|_inf, |dx|_inf. A done slot copies x, y, z through and writes
 // zero stats (the caller discards every output of a done row).
 //
-// Design. One thread block per problem slot; the slot reads its combo from
-// tile_combo[slot / bt]. The slot's vectors (x, qbar, dg and three nz
-// temporaries; y, z, lbar, ubar, rho, the debris row scale and two m
-// temporaries; two K temporaries) live in dynamic shared memory: ~25 KB in
-// fp32, ~50 KB in fp64. The matrices (A_c m x nz, W_c nz x nz, YT_c K x nz,
-// Pbar, gsel/scat/rsel/gscat and the slot's T^-1) are read from global
-// memory on every iteration. A·v is a warp-per-row reduction, v·M a
-// thread-per-column walk down the rows (split over row groups when M is
-// narrower than the block); both read row-major matrices coalesced. t·K1 is
-// the exact block swap of t's halves (K1 is that permutation by
-// construction, so this equals the product). All arithmetic is CUDA-core FMA
-// in full fp32 or fp64: reduced-precision products are known to stall this
-// solver.
+// Design: slot groups. One block serves S consecutive slots of one tile (S
+// divides bt, so the group is combo-pure; S = 1, 2, 4 or 8 in fp32, 1 or 2
+// in fp64). The group's vectors live in dynamic shared memory
+// slot-interleaved, v[i * S + s], ~25 KB per slot in fp32 and ~50 KB in
+// fp64 (S = 1 is the one-slot layout of the first version of this kernel,
+// which ran one 256-thread block per slot). Each shared-matrix element a
+// thread loads from L2 serves the S slots:
+//   vecmat  out_s[j] = sum_i v_s[i] M[i, j]: the first version's thread per
+//           column (split over row groups when M is narrower than 256) ran
+//           eight interleaved FMA chains; here, in fp32, two threads share
+//           a column, four chains each (4 S accumulators; in fp64 one thread
+//           runs all eight), the S values of row i read as one vector load,
+//           ~32 fp32 registers of M loads in flight;
+//   matvec  out_s[i] = sum_j M[i, j] v_s[j]: a warp per row, each lane
+//           holding its eight v_s[j] in registers (nz <= 256), one chain per
+//           slot, 2-4 rows of M in flight; the S lane sums are reduced by a
+//           transposed butterfly (S - 1 + 5 - log2 S shuffles, not 5 S).
+// So an fp32 block has 512 threads, 16 warps where the first version had 8:
+// with few live slots the chunk is a chain of L2 round trips, and more
+// warps keep more of them in flight. (An fp64 block keeps 256 threads: at
+// 512 its registers spilled and it ran at half the first version's speed.)
+// The products are functions of their own (__noinline__), one copy per
+// slot count, which keeps the build short.
 //
-// What bounds it. Per iteration a slot streams ~0.45 M matrix elements
-// (A_c twice, W_c twice, YT_c twice, T^-1, the gather/scatter factors) for
-// ~0.45 M FMAs: about 0.5 FLOP per byte in fp32. All four combos' shared
-// matrices (~3.8 MiB fp32) stay resident in the 50 MB L2, so the kernel is
-// bound by L2 bandwidth, not by FLOPs and not by HBM. The simple design
-// accepts that; reusing each matrix read across several slots of one combo
-// (a tile per block, wgmma/TMA staging) is the next step.
+// Each slot's result is bit for bit that of the one-slot kernel: every dot
+// product keeps its chains, its pairwise sum (the two halves meet in one
+// shuffle), its row-group partials and its butterfly tree (the transposed
+// butterfly adds the same pairs at the same stages); the end-of-chunk
+// reductions run on the first 256 threads in the first version's order;
+// and every elementwise expression is written out with the contractions
+// nvcc chose there (fma where it fused, _rn operations where it did not).
+// So S, the grid, a slot's position and the live count move no bit of the
+// result.
+//
+// What bounds it, per slot-iteration (nz=256, m=512, K=128, gw=64, fp32):
+//   shared matrices (A_c twice, W_c twice, YT_c twice, gsel/scat/rsel/gscat)
+//     ~0.54 M elements, 2.2 MB from L2: the one-slot kernel moved 56 GB per
+//     1024-slot chunk, ~5.7 ms of its 10.3 at ~10 TB/s. A group reads them
+//     once for S slots: 2.2 MB / S per slot;
+//   FMAs ~0.56 M per slot: 14.3 G per 1024-slot chunk, 0.43 ms at the fp32
+//     peak. Vector loads of the S slot values keep one shared-memory
+//     wavefront per 4 (S >= 4) FMAs;
+//   T^-1 (K x K, the slot's own) 64 KiB per slot-iteration, 1.68 GB per
+//     1024-slot chunk, 0.50 ms at HBM rate: too large for L2 (64 MiB) and,
+//     beside S slots' vectors, for shared memory (a cp.async ring of it
+//     would cost the group size). Each iteration prefetches the group's
+//     T^-1 into L2 at its start, so the stream overlaps the A' product and
+//     the W/YT products before the T^-1 product reads it, and the S slots'
+//     T^-1 loads go out together.
+// Blocks of all-done groups copy through and exit. All arithmetic is
+// CUDA-core FMA in full fp32 or fp64: reduced-precision products are known
+// to stall this solver.
 
 #include <cuda_runtime.h>
 
@@ -44,8 +75,21 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// The one-slot kernel's block of 256 threads sets every summation order
+// below. In fp32 a block of this kernel runs two threads for each of those
+// logical threads, each with half of its FMA chains; in fp64 one, whose
+// registers a 512-thread block could not hold.
+constexpr int kThreads = 256;          // logical threads
+constexpr int kWarps = kThreads / 32;  // their warps (block_reduce)
+constexpr int kLaneCols = 8;           // matvec: v columns per lane (nz <= 256)
+
+template <typename T>
+struct Layout {
+  static constexpr int split = sizeof(T) == 4 ? 2 : 1;  // threads per logical
+  static constexpr int block = kThreads * split;        // threads per block
+  static constexpr int warps = block / 32;
+  static constexpr int chains = 8 / split;  // vecmat FMA chains per thread
+};
 
 // NaN-propagating max/min (jnp.maximum / torch.maximum semantics).
 template <typename T>
@@ -66,86 +110,273 @@ struct MaxOp {
   __device__ __forceinline__ T operator()(T a, T b) const { return pmax(a, b); }
 };
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Uncontracted multiply, add and subtract: where nvcc did not fuse.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// N consecutive values from shared memory, as vector loads where aligned
+// (the slot-interleaved layout keeps row starts at N * sizeof(T)).
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Pack {
+  T v[N];
+};
+template <typename T, int N>
+__device__ __forceinline__ void lds(const T* p, T (&o)[N]) {
+  const Pack<T, N> pk = *reinterpret_cast<const Pack<T, N>*>(p);
+#pragma unroll
+  for (int n = 0; n < N; ++n) o[n] = pk.v[n];
 }
 
-// Reduce one value per thread over the block; every thread gets the result.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, T* red, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+// Reduce S values per logical thread over the logical block, one butterfly
+// and one pass over the eight warps' partials each, in the one-slot order;
+// every thread gets the S results (threads past the logical block take
+// part in the barriers only).
+template <typename T, int S, typename Op>
+__device__ void block_reduce(T (&v)[S], T* red, Op op) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    for (int o = 16; o > 0; o >>= 1)
+      v[s] = op(v[s], __shfl_xor_sync(0xffffffffu, v[s], o));
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   __syncthreads();  // red may still be read by a previous reduction
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  v = red[0];
-  for (int i = 1; i < kWarps; ++i) v = op(v, red[i]);
-  return v;
-}
-
-// sum_{i0 <= i < i1} v[i] * M[i, j]: eight interleaved FMA chains, summed
-// pairwise — independent chains hide FMA latency, and the shorter chains
-// keep fp32 round-off near a blocked GEMM's (a single chain over 512 rows
-// measured ~10x the twin's error on debris rows, whose Woodbury term
-// cancels most of the solve).
-template <typename T>
-__device__ __forceinline__ T dot_col(const T* __restrict__ M, int ncol, int j,
-                                     const T* v, int i0, int i1) {
-  T acc[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  int i = i0;
-  for (; i + 8 <= i1; i += 8) {
+  if (lane == 0 && w < kWarps) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      acc[q] = fma(v[i + q], __ldg(M + static_cast<size_t>(i + q) * ncol + j),
-                   acc[q]);
+    for (int s = 0; s < S; ++s) red[w * S + s] = v[s];
   }
-  for (; i < i1; ++i)
-    acc[0] = fma(v[i], __ldg(M + static_cast<size_t>(i) * ncol + j), acc[0]);
-  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-         ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    v[s] = red[s];
+    for (int i = 1; i < kWarps; ++i) v[s] = op(v[s], red[i * S + s]);
+  }
 }
 
-// out[j] = sum_i v[i] * M[i, j] for row-major M (nrow x ncol); v and out in
-// shared memory. A thread per column; when ncol < kThreads the rows are
-// split over kThreads / ncol groups whose partial sums go through `part`.
-template <typename T>
-__device__ void vecmat(const T* __restrict__ M, const T* v, T* out, int nrow,
-                       int ncol, T* part) {
+// r_s = sum_{i0 <= i < i1} v[i * vs + s] * M_s[i, j] (s < NS) in the
+// one-slot kernel's arithmetic: eight interleaved FMA chains (chain q takes
+// rows i0 + 8b + q of the full batches of eight; the rows left over go to
+// chain 0 after them), summed pairwise, ((c0 + c1) + (c2 + c3)) +
+// ((c4 + c5) + (c6 + c7)). In fp32 the two threads of a pair (lanes 2l and
+// 2l + 1, half h) run chains 4h..4h+3 and add their halves with one
+// shuffle, so both get that sum; in fp64 one thread runs all eight. Independent chains hide FMA latency, and the shorter
+// chains keep fp32 round-off near a blocked GEMM's (a single chain over 512
+// rows measured ~10x the twin's error on debris rows, whose Woodbury term
+// cancels most of the solve). With OWN each slot reads its own matrix,
+// M_s = M + s * mstride (the slots' T^-1); otherwise the NS slots share M
+// and each load serves all of them. About 32 fp32 registers of loads are in
+// flight per thread.
+template <typename T, int NS, bool OWN>
+__device__ __forceinline__ void dot_col(const T* __restrict__ M,
+                                        size_t mstride, int ncol, int j,
+                                        const T* v, int vs, int i0, int i1,
+                                        int h, T (&r)[NS]) {
+  constexpr int kChains = Layout<T>::chains;
+  constexpr int kL = OWN ? NS : 1;  // loads per row
+  constexpr int kLoadBytes = kChains * kL * static_cast<int>(sizeof(T));
+  constexpr int kBatches = kLoadBytes >= 128 ? 1 : 128 / kLoadBytes;
+  T acc[NS][kChains];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) acc[s][c] = T(0);
+  const int nb = i1 > i0 ? (i1 - i0) / 8 : 0;
+  const T* col = M + static_cast<size_t>(i0 + kChains * h) * ncol + j;
+  T mv[kBatches][kChains][kL];
+#pragma unroll
+  for (int d = 0; d < kBatches; ++d)
+    if (d < nb) {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c)
+#pragma unroll
+        for (int l = 0; l < kL; ++l)
+          mv[d][c][l] = __ldg(col + l * mstride +
+                              static_cast<size_t>(8 * d + c) * ncol);
+    }
+  for (int b0 = 0; b0 < nb; b0 += kBatches) {
+#pragma unroll
+    for (int d = 0; d < kBatches; ++d) {
+      const int b = b0 + d;
+      if (b < nb) {
+        const T* vr = v + static_cast<size_t>(i0 + 8 * b + kChains * h) * vs;
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+          T vq[NS];
+          lds<T, NS>(vr + c * vs, vq);
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            acc[s][c] = fma(vq[s], mv[d][c][OWN ? s : 0], acc[s][c]);
+        }
+        if (b + kBatches < nb) {
+#pragma unroll
+          for (int c = 0; c < kChains; ++c)
+#pragma unroll
+            for (int l = 0; l < kL; ++l)
+              mv[d][c][l] = __ldg(col + l * mstride +
+                                  static_cast<size_t>(8 * (b + kBatches) + c) *
+                                      ncol);
+        }
+      }
+    }
+  }
+  if (h == 0) {
+    for (int i = i0 + 8 * nb; i < i1; ++i) {
+      T vq[NS];
+      lds<T, NS>(v + static_cast<size_t>(i) * vs, vq);
+      const T* mi = M + static_cast<size_t>(i) * ncol + j;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        acc[s][0] = fma(vq[s], __ldg(mi + (OWN ? s * mstride : 0)), acc[s][0]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const T t = (acc[s][0] + acc[s][1]) + (acc[s][2] + acc[s][3]);
+    if constexpr (kChains == 8) {
+      r[s] = t + ((acc[s][4] + acc[s][5]) + (acc[s][6] + acc[s][7]));
+    } else {
+      r[s] = t + __shfl_xor_sync(3u << (threadIdx.x & 30), t, 1);
+    }
+  }
+}
+
+// out[j * S + s] = sum_i v[i * S + s] * M_s[i, j] for row-major M (nrow x
+// ncol), shared by the S slots (M_s = M) or, with OWN, each slot's own
+// (M_s = M + s * mstride). A logical thread per column; when ncol <
+// kThreads the rows are split over kThreads / ncol groups whose partial
+// sums go through `part` (kThreads * S entries) and are added in group
+// order.
+template <typename T, int S, bool OWN>
+__device__ __noinline__ void vecmat(const T* __restrict__ M, size_t mstride,
+                                    const T* v, T* out, int nrow, int ncol,
+                                    T* part) {
+  const int lt = threadIdx.x / Layout<T>::split;
+  const int h = threadIdx.x % Layout<T>::split;
   const int groups = kThreads / ncol;
   if (groups <= 1) {
-    for (int j = threadIdx.x; j < ncol; j += kThreads)
-      out[j] = dot_col(M, ncol, j, v, 0, nrow);
+    for (int j = lt; j < ncol; j += kThreads) {
+      T r[S];
+      dot_col<T, S, OWN>(M, mstride, ncol, j, v, S, 0, nrow, h, r);
+      if (h == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) out[j * S + s] = r[s];
+      }
+    }
   } else {
-    const int j = threadIdx.x % ncol, g = threadIdx.x / ncol;
+    const int j = lt % ncol, g = lt / ncol;
     if (g < groups) {
       const int rows = (nrow + groups - 1) / groups;
       const int i0 = g * rows, i1 = min(nrow, i0 + rows);
-      part[g * ncol + j] = dot_col(M, ncol, j, v, i0, i1);
+      T r[S];
+      dot_col<T, S, OWN>(M, mstride, ncol, j, v, S, i0, i1, h, r);
+      if (h == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) part[(g * ncol + j) * S + s] = r[s];
+      }
     }
     __syncthreads();
-    for (int jj = threadIdx.x; jj < ncol; jj += kThreads) {
-      T acc = part[jj];
-      for (int gg = 1; gg < groups; ++gg) acc += part[gg * ncol + jj];
-      out[jj] = acc;
+    for (int idx = threadIdx.x; idx < ncol * S; idx += Layout<T>::block) {
+      T acc = part[idx];
+      for (int gg = 1; gg < groups; ++gg) acc += part[gg * ncol * S + idx];
+      out[idx] = acc;
     }
   }
   __syncthreads();
 }
 
-// out[i] = sum_j M[i, j] * v[j] for row-major M (nrow x ncol): a warp per
-// row, lanes striding along it.
-template <typename T>
-__device__ void matvec(const T* __restrict__ M, const T* v, T* out, int nrow,
-                       int ncol) {
+// Sum of each of a lane's S values over the warp, as the one-slot
+// butterfly (o = 16, 8, 4, 2, 1) sums one: in the first log2 S stages a
+// lane keeps the half of its slots named by its lane bit and receives the
+// partner's partials of that half, so each stage adds the same pairs. The
+// lane's slot is returned in `slot`; its sum in v[0]. (H, the half kept at
+// this stage, is a template argument so that every index into v is a
+// constant and v stays in registers.)
+template <typename T, int S, int H>
+struct WarpSums {
+  static __device__ __forceinline__ void run(T (&v)[S], int lane, int& slot,
+                                             int o) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int t = 0; t < H; ++t) {
+      const T send = upper ? v[t] : v[t + H];
+      const T keep = upper ? v[t + H] : v[t];
+      v[t] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    slot = 2 * slot + (upper ? 1 : 0);
+    WarpSums<T, S, H / 2>::run(v, lane, slot, o >> 1);
+  }
+};
+template <typename T, int S>
+struct WarpSums<T, S, 0> {
+  static __device__ __forceinline__ void run(T (&v)[S], int, int&, int o) {
+    for (; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  }
+};
+template <typename T, int S>
+__device__ __forceinline__ void warp_sums(T (&v)[S], int lane, int& slot) {
+  slot = 0;
+  WarpSums<T, S, S / 2>::run(v, lane, slot, 16);
+}
+
+// out[i * S + s] = sum_j M[i, j] * v[j * S + s] for row-major M (nrow x
+// ncol, ncol <= 32 kLaneCols): a warp per row, lanes striding along it with
+// their v columns in registers, 2-4 rows of M in flight per warp.
+template <typename T, int S>
+__device__ __noinline__ void matvec(const T* __restrict__ M, const T* v,
+                                    T* out, int nrow, int ncol) {
+  constexpr int kRows = S * sizeof(T) >= 32 ? 2 : 4;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int i = w; i < nrow; i += kWarps) {
-    const T* row = M + static_cast<size_t>(i) * ncol;
-    T acc = T(0);
-    for (int j = lane; j < ncol; j += 32) acc = fma(__ldg(row + j), v[j], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] = acc;
+  T vf[kLaneCols][S];
+#pragma unroll
+  for (int k = 0; k < kLaneCols; ++k) {
+    const int j = lane + 32 * k;
+    if (j < ncol) {
+      lds<T, S>(v + static_cast<size_t>(j) * S, vf[k]);
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) vf[k][s] = T(0);
+    }
+  }
+  // rows of this warp: i = w + Layout<T>::warps * r, r < nr
+  const int nr = nrow > w ? (nrow - w + Layout<T>::warps - 1) / Layout<T>::warps : 0;
+  T mr[kRows][kLaneCols];
+#pragma unroll
+  for (int d = 0; d < kRows; ++d)
+    if (d < nr) {
+      const T* row = M + static_cast<size_t>(w + Layout<T>::warps * d) * ncol;
+#pragma unroll
+      for (int k = 0; k < kLaneCols; ++k)
+        if (lane + 32 * k < ncol) mr[d][k] = __ldg(row + lane + 32 * k);
+    }
+  for (int r0 = 0; r0 < nr; r0 += kRows) {
+#pragma unroll
+    for (int d = 0; d < kRows; ++d) {
+      const int r = r0 + d;
+      if (r < nr) {
+        T acc[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[s] = T(0);
+#pragma unroll
+        for (int k = 0; k < kLaneCols; ++k)
+          if (lane + 32 * k < ncol) {
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[s] = fma(mr[d][k], vf[k][s], acc[s]);
+          }
+        if (r + kRows < nr) {
+          const T* row =
+              M + static_cast<size_t>(w + Layout<T>::warps * (r + kRows)) * ncol;
+#pragma unroll
+          for (int k = 0; k < kLaneCols; ++k)
+            if (lane + 32 * k < ncol) mr[d][k] = __ldg(row + lane + 32 * k);
+        }
+        int slot;
+        warp_sums<T, S>(acc, lane, slot);
+        if ((lane & (32 / S - 1)) == 0)
+          out[static_cast<size_t>(w + Layout<T>::warps * r) * S + slot] = acc[0];
+      }
+    }
   }
   __syncthreads();
 }
@@ -185,268 +416,435 @@ struct Args {
   T sigma, alpha, one_m_alpha, eps_pinf, eps_dinf, thresh;
 };
 
-// Per-slot view shared by the helpers below.
+// Per-slot scalars in shared memory, sc[c * S + s], and the end-of-chunk
+// reductions, fin[c * S + s].
+enum { kR = 0, kAl, kRs, kRss, kRuu, kAls, kDone, kScalars };
+enum { kRp = 0, kRpRel, kRd, kRdRel, kNv, kSup, kAtv, kNvx, kQv, kPdx, kFin };
+
+// Group view shared by the helpers below.
 template <typename T>
-struct Slot {
+struct Group {
   const T* A;
-  const T* rsc;  // debris row scale (m)
-  T* g;          // gw temporary
-  T* part;       // kThreads scratch for vecmat
-  T als;         // alpha * s
+  const T* rsc;  // debris row scale (m x S)
+  const T* sc;   // per-slot scalars
+  T* g;          // gw x S temporary
+  T* part;       // kThreads x S scratch for vecmat
 };
 
-// out(m) = A_c x scaled by the debris row scale, plus the s-correction.
-template <typename T>
-__device__ void apply_A(const Args<T>& a, const Slot<T>& s, const T* xin,
+// out(m x S) = A_c x scaled by the debris row scale, plus the s-correction.
+template <typename T, int S>
+__device__ void apply_A(const Args<T>& a, const Group<T>& gp, const T* xin,
                         T* out) {
-  matvec(s.A, xin, out, a.m, a.nz);
-  vecmat(a.gsel, xin, s.g, a.nz, a.gw, s.part);
-  for (int k = threadIdx.x; k < a.gw; k += kThreads) s.g[k] = s.als * s.g[k];
+  matvec<T, S>(gp.A, xin, out, a.m, a.nz);
+  vecmat<T, S, false>(a.gsel, 0, xin, gp.g, a.nz, a.gw, gp.part);
+  for (int idx = threadIdx.x; idx < a.gw * S; idx += Layout<T>::block)
+    gp.g[idx] = mul_rn(gp.sc[kAls * S + idx % S], gp.g[idx]);
   __syncthreads();
-  for (int i = threadIdx.x; i < a.m; i += kThreads) {
-    T corr = T(0);
-    for (int k = 0; k < a.gw; ++k)
-      corr = fma(s.g[k], __ldg(a.scat + static_cast<size_t>(k) * a.m + i), corr);
-    out[i] = out[i] * s.rsc[i] + corr;
+  // corr_s[i] = sum_k g_s[k] scat[k, i], one chain in k order, with
+  // 16 rows of scat loaded ahead
+  constexpr int kAhead = 16;
+  for (int i = threadIdx.x; i < a.m; i += Layout<T>::block) {
+    T corr[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) corr[s] = T(0);
+    const T* col = a.scat + i;
+    T sk[kAhead];
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d)
+      if (d < a.gw) sk[d] = __ldg(col + static_cast<size_t>(d) * a.m);
+    for (int k0 = 0; k0 < a.gw; k0 += kAhead) {
+#pragma unroll
+      for (int d = 0; d < kAhead; ++d) {
+        const int k = k0 + d;
+        if (k < a.gw) {
+          T gk[S];
+          lds<T, S>(gp.g + k * S, gk);
+#pragma unroll
+          for (int s = 0; s < S; ++s) corr[s] = fma(gk[s], sk[d], corr[s]);
+          if (k + kAhead < a.gw)
+            sk[d] = __ldg(col + static_cast<size_t>(k + kAhead) * a.m);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      out[i * S + s] = fma(out[i * S + s], gp.rsc[i * S + s], corr[s]);
   }
   __syncthreads();
 }
 
-// out(nz) = A' w with the same scaling and correction; tm (m) and tn (nz)
-// are temporaries.
-template <typename T>
-__device__ void apply_AT(const Args<T>& a, const Slot<T>& s, const T* win,
+// out(nz x S) = A' w with the same scaling and correction; tm (m x S) and
+// tn (nz x S) are temporaries.
+template <typename T, int S>
+__device__ void apply_AT(const Args<T>& a, const Group<T>& gp, const T* win,
                          T* out, T* tm, T* tn) {
-  vecmat(a.rsel, win, s.g, a.m, a.gw, s.part);
-  for (int i = threadIdx.x; i < a.m; i += kThreads) tm[i] = win[i] * s.rsc[i];
-  for (int k = threadIdx.x; k < a.gw; k += kThreads) s.g[k] = s.als * s.g[k];
+  vecmat<T, S, false>(a.rsel, 0, win, gp.g, a.m, a.gw, gp.part);
+  for (int idx = threadIdx.x; idx < a.m * S; idx += Layout<T>::block)
+    tm[idx] = mul_rn(win[idx], gp.rsc[idx]);
+  for (int idx = threadIdx.x; idx < a.gw * S; idx += Layout<T>::block)
+    gp.g[idx] = mul_rn(gp.sc[kAls * S + idx % S], gp.g[idx]);
   __syncthreads();
-  vecmat(s.A, tm, out, a.m, a.nz, s.part);
-  vecmat(a.gscat, s.g, tn, a.gw, a.nz, s.part);
-  for (int j = threadIdx.x; j < a.nz; j += kThreads) out[j] = out[j] + tn[j];
+  vecmat<T, S, false>(gp.A, 0, tm, out, a.m, a.nz, gp.part);
+  vecmat<T, S, false>(a.gscat, 0, gp.g, tn, a.gw, a.nz, gp.part);
+  for (int idx = threadIdx.x; idx < a.nz * S; idx += Layout<T>::block)
+    out[idx] = add_rn(out[idx], tn[idx]);
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) eig_chunk_kernel(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <typename T, int S>
+__global__ void __launch_bounds__(Layout<T>::block) eig_chunk_kernel(Args<T> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nz = a.nz, m = a.m, K = a.K, tid = threadIdx.x;
-  const int slot = blockIdx.x;
-  const size_t onz = static_cast<size_t>(slot) * nz;
-  const size_t om = static_cast<size_t>(slot) * m;
+  const int slot0 = blockIdx.x * S;
+  const size_t onz = static_cast<size_t>(slot0) * nz;
+  const size_t om = static_cast<size_t>(slot0) * m;
 
-  if (a.done[slot]) {
-    for (int j = tid; j < nz; j += kThreads) a.xo[onz + j] = a.x[onz + j];
-    for (int i = tid; i < m; i += kThreads) {
-      a.yo[om + i] = a.y[om + i];
-      a.zo[om + i] = a.z[om + i];
+  bool all_done = true;
+#pragma unroll
+  for (int s = 0; s < S; ++s) all_done = all_done && a.done[slot0 + s] != 0;
+  if (all_done) {
+    for (int idx = tid; idx < S * nz; idx += Layout<T>::block) a.xo[onz + idx] = a.x[onz + idx];
+    for (int idx = tid; idx < S * m; idx += Layout<T>::block) {
+      a.yo[om + idx] = a.y[om + idx];
+      a.zo[om + idx] = a.z[om + idx];
     }
-    if (tid < 8) a.stats[static_cast<size_t>(slot) * 8 + tid] = T(0);
+    if (tid < 8 * S) a.stats[static_cast<size_t>(slot0) * 8 + tid] = T(0);
     return;
   }
 
+  const size_t vnz = static_cast<size_t>(nz) * S, vm = static_cast<size_t>(m) * S;
   T* sx = sm;
-  T* sq = sx + nz;
-  T* sdg = sq + nz;
-  T* v1 = sdg + nz;
-  T* v2 = v1 + nz;
-  T* v3 = v2 + nz;
-  T* sy = v3 + nz;
-  T* sz = sy + m;
-  T* slb = sz + m;
-  T* sub = slb + m;
-  T* srho = sub + m;
-  T* srsc = srho + m;
-  T* sw = srsc + m;
-  T* sAx = sw + m;
-  T* ka = sAx + m;
-  T* kt = ka + K;
-  T* sg = kt + K;
-  T* part = sg + a.gw;
-  T* red = part + kThreads;
+  T* sq = sx + vnz;
+  T* sdg = sq + vnz;
+  T* v1 = sdg + vnz;
+  T* v2 = v1 + vnz;
+  T* v3 = v2 + vnz;
+  T* sy = v3 + vnz;
+  T* sz = sy + vm;
+  T* slb = sz + vm;
+  T* sub = slb + vm;
+  T* srho = sub + vm;
+  T* srsc = srho + vm;
+  T* sw = srsc + vm;
+  T* sAx = sw + vm;
+  T* ka = sAx + vm;
+  T* kt = ka + K * S;
+  T* sg = kt + K * S;
+  T* part = sg + a.gw * S;
+  T* red = part + kThreads * S;
+  T* sc = red + 32 * S;
+  T* fin = sc + kScalars * S;
 
-  const int combo = a.tile_combo[slot / a.bt];
-  Slot<T> s;
-  s.A = a.A + static_cast<size_t>(combo) * m * nz;
+  const int combo = a.tile_combo[slot0 / a.bt];
+  Group<T> gp;
+  gp.A = a.A + static_cast<size_t>(combo) * m * nz;
   const T* W = a.W + static_cast<size_t>(combo) * nz * nz;
   const T* YT = a.YT + static_cast<size_t>(combo) * K * nz;
-  const T* tinv = a.tinv + static_cast<size_t>(slot) * K * K;
-  s.rsc = srsc;
-  s.g = sg;
-  s.part = part;
+  const size_t kk = static_cast<size_t>(K) * K;
+  const T* tinv = a.tinv + static_cast<size_t>(slot0) * kk;
+  gp.rsc = srsc;
+  gp.sc = sc;
+  gp.g = sg;
+  gp.part = part;
 
-  const T r = a.scal[slot * 8 + 0];
-  const T sv = a.scal[slot * 8 + 1];
-  T al = a.scal[slot * 8 + 2];
-  if (al == T(0)) al = T(1);
-  const T alsq = al * al;
-  const T rs = r * alsq * sv;
-  const T rss = r * alsq * sv * sv;
-  const T ruu = r * (alsq - T(1));
-  s.als = al * sv;
-
-  for (int j = tid; j < nz; j += kThreads) {
-    sx[j] = a.x[onz + j];
-    sq[j] = a.qbar[onz + j];
-    sdg[j] = a.dg[onz + j];
+  if (tid < S) {
+    const size_t o = static_cast<size_t>(slot0 + tid) * 8;
+    const T r = a.scal[o + 0];
+    const T sv = a.scal[o + 1];
+    T al = a.scal[o + 2];
+    if (al == T(0)) al = T(1);
+    const T alsq = mul_rn(al, al);
+    const T ralsq = mul_rn(r, alsq);
+    sc[kR * S + tid] = r;
+    sc[kAl * S + tid] = al;
+    sc[kRs * S + tid] = mul_rn(ralsq, sv);
+    sc[kRss * S + tid] = mul_rn(mul_rn(ralsq, sv), sv);
+    sc[kRuu * S + tid] = mul_rn(r, sub_rn(alsq, T(1)));
+    sc[kAls * S + tid] = mul_rn(al, sv);
+    sc[kDone * S + tid] = a.done[slot0 + tid] ? T(1) : T(0);
   }
-  for (int i = tid; i < m; i += kThreads) {
-    sy[i] = a.y[om + i];
-    sz[i] = a.z[om + i];
-    slb[i] = a.lbar[om + i];
-    sub[i] = a.ubar[om + i];
-    srho[i] = r * a.rhov[i];
-    srsc[i] = T(1) + (al - T(1)) * a.dmask[i];
+  __syncthreads();
+
+  // group loads: coalesced in global memory, slot-interleaved in shared
+  for (int idx = tid; idx < S * nz; idx += Layout<T>::block) {
+    const int s = idx / nz, j = idx - s * nz, p = j * S + s;
+    sx[p] = a.x[onz + idx];
+    sq[p] = a.qbar[onz + idx];
+    sdg[p] = a.dg[onz + idx];
+  }
+  for (int idx = tid; idx < S * m; idx += Layout<T>::block) {
+    const int s = idx / m, i = idx - s * m, p = i * S + s;
+    sy[p] = a.y[om + idx];
+    sz[p] = a.z[om + idx];
+    slb[p] = a.lbar[om + idx];
+    sub[p] = a.ubar[om + idx];
+    srho[p] = mul_rn(sc[kR * S + s], a.rhov[i]);
+    srsc[p] = fma(sub_rn(sc[kAl * S + s], T(1)), a.dmask[i], T(1));
   }
   __syncthreads();
 
   const int half = K / 2;
+  const size_t tbytes = static_cast<size_t>(S) * kk * sizeof(T);
   for (int it = 0; it < a.n_iter; ++it) {
+    // the group's T^-1 into L2 ahead of its product
+    for (size_t off = static_cast<size_t>(tid) * 128; off < tbytes;
+         off += static_cast<size_t>(Layout<T>::block) * 128)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(
+          reinterpret_cast<const char*>(tinv) + off));
+
     // rhs = sigma x - qbar + A'(rho z - y)  -> v3
-    for (int i = tid; i < m; i += kThreads) sw[i] = srho[i] * sz[i] - sy[i];
+    for (int idx = tid; idx < m * S; idx += Layout<T>::block)
+      sw[idx] = fma(srho[idx], sz[idx], -sy[idx]);
     __syncthreads();
-    apply_AT(a, s, sw, v1, sAx, v2);
-    for (int j = tid; j < nz; j += kThreads)
-      v3[j] = (a.sigma * sx[j] - sq[j]) + v1[j];
+    apply_AT<T, S>(a, gp, sw, v1, sAx, v2);
+    for (int idx = tid; idx < nz * S; idx += Layout<T>::block)
+      v3[idx] = add_rn(fma(a.sigma, sx[idx], -sq[idx]), v1[idx]);
     __syncthreads();
 
     // exact solve: u = rhs W; d = u dg; a = d YT'; t = a T^-1;
     // h = rs (t K1) + rss (t w33) + ruu (t wuu); xt = ((u - h YT) dg) W'
-    vecmat(W, v3, v1, nz, nz, part);
-    for (int j = tid; j < nz; j += kThreads) v2[j] = v1[j] * sdg[j];
+    vecmat<T, S, false>(W, 0, v3, v1, nz, nz, part);
+    for (int idx = tid; idx < nz * S; idx += Layout<T>::block)
+      v2[idx] = mul_rn(v1[idx], sdg[idx]);
     __syncthreads();
-    matvec(YT, v2, ka, K, nz);
-    vecmat(tinv, ka, kt, K, K, part);
-    for (int l = tid; l < K; l += kThreads) {
-      const T t = kt[l];
-      ka[l] = rs * kt[l < half ? l + half : l - half] + rss * (t * a.w33[l]) +
-              ruu * (t * a.wuu[l]);
+    matvec<T, S>(YT, v2, ka, K, nz);
+    vecmat<T, S, true>(tinv, kk, ka, kt, K, K, part);
+    for (int idx = tid; idx < K * S; idx += Layout<T>::block) {
+      const int l = idx / S, s = idx - l * S;
+      const T t = kt[idx];
+      const T tsw = kt[(l < half ? l + half : l - half) * S + s];
+      ka[idx] = fma(sc[kRuu * S + s], mul_rn(t, a.wuu[l]),
+                    fma(sc[kRs * S + s], tsw,
+                        mul_rn(sc[kRss * S + s], mul_rn(t, a.w33[l]))));
     }
     __syncthreads();
-    vecmat(YT, ka, v2, K, nz, part);
-    for (int j = tid; j < nz; j += kThreads) v3[j] = (v1[j] - v2[j]) * sdg[j];
+    vecmat<T, S, false>(YT, 0, ka, v2, K, nz, part);
+    for (int idx = tid; idx < nz * S; idx += Layout<T>::block)
+      v3[idx] = mul_rn(sub_rn(v1[idx], v2[idx]), sdg[idx]);
     __syncthreads();
-    matvec(W, v3, v1, nz, nz);  // v1 = xt
+    matvec<T, S>(W, v3, v1, nz, nz);  // v1 = xt
 
     // zt = A xt; relaxation, clip, dual update
-    apply_A(a, s, v1, sAx);
-    for (int i = tid; i < m; i += kThreads) {
-      const T ztmp = a.alpha * sAx[i] + a.one_m_alpha * sz[i];
-      T zn = ztmp + sy[i] / srho[i];
-      zn = zn < slb[i] ? slb[i] : zn;  // NaN stays NaN, as in jnp.clip
-      zn = zn > sub[i] ? sub[i] : zn;
-      sy[i] = sy[i] + srho[i] * (ztmp - zn);
-      sz[i] = zn;
+    apply_A<T, S>(a, gp, v1, sAx);
+    for (int idx = tid; idx < m * S; idx += Layout<T>::block) {
+      const T ztmp = fma(a.alpha, sAx[idx], mul_rn(a.one_m_alpha, sz[idx]));
+      T zn = add_rn(ztmp, sy[idx] / srho[idx]);
+      zn = zn < slb[idx] ? slb[idx] : zn;  // NaN stays NaN, as in jnp.clip
+      zn = zn > sub[idx] ? sub[idx] : zn;
+      sy[idx] = fma(srho[idx], sub_rn(ztmp, zn), sy[idx]);
+      sz[idx] = zn;
     }
-    for (int j = tid; j < nz; j += kThreads)
-      sx[j] = a.alpha * v1[j] + a.one_m_alpha * sx[j];
+    for (int idx = tid; idx < nz * S; idx += Layout<T>::block)
+      sx[idx] = fma(a.alpha, v1[idx], mul_rn(a.one_m_alpha, sx[idx]));
     __syncthreads();
   }
 
-  for (int j = tid; j < nz; j += kThreads) a.xo[onz + j] = sx[j];
-  for (int i = tid; i < m; i += kThreads) {
-    a.yo[om + i] = sy[i];
-    a.zo[om + i] = sz[i];
+  for (int idx = tid; idx < S * nz; idx += Layout<T>::block) {
+    const int s = idx / nz, j = idx - s * nz;
+    a.xo[onz + idx] = sc[kDone * S + s] != T(0) ? a.x[onz + idx] : sx[j * S + s];
+  }
+  for (int idx = tid; idx < S * m; idx += Layout<T>::block) {
+    const int s = idx / m, i = idx - s * m;
+    const bool dn = sc[kDone * S + s] != T(0);
+    a.yo[om + idx] = dn ? a.y[om + idx] : sy[i * S + s];
+    a.zo[om + idx] = dn ? a.z[om + idx] : sz[i * S + s];
   }
 
-  // ---- scaled residuals
+  // ---- scaled residuals; per-slot partials keep the one-slot thread map
+  // (thread tid takes elements tid, tid + kThreads, ...)
   const MaxOp mx{};
   const SumOp sum{};
-  apply_A(a, s, sx, sAx);
-  T rp = T(0), ax = T(0), azz = T(0);
-  for (int i = tid; i < m; i += kThreads) {
-    const T e = a.einv[i];
-    rp = pmax(rp, fabs(e * (sAx[i] - sz[i])));
-    ax = pmax(ax, fabs(e * sAx[i]));
-    azz = pmax(azz, fabs(e * sz[i]));
+  apply_A<T, S>(a, gp, sx, sAx);
+  {
+    T rp[S], ax[S], azz[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      rp[s] = ax[s] = azz[s] = T(0);
+      for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+        const T e = a.einv[i];
+        const int p = i * S + s;
+        rp[s] = pmax(rp[s], fabs(mul_rn(e, sub_rn(sAx[p], sz[p]))));
+        ax[s] = pmax(ax[s], fabs(mul_rn(e, sAx[p])));
+        azz[s] = pmax(azz[s], fabs(mul_rn(e, sz[p])));
+      }
+    }
+    block_reduce<T, S>(rp, red, mx);
+    block_reduce<T, S>(ax, red, mx);
+    block_reduce<T, S>(azz, red, mx);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        fin[kRp * S + s] = rp[s];
+        fin[kRpRel * S + s] = pmax(ax[s], azz[s]);
+      }
+    }
   }
-  rp = block_reduce(rp, red, mx);
-  const T rp_rel = pmax(block_reduce(ax, red, mx), block_reduce(azz, red, mx));
 
-  vecmat(a.pbar, sx, v1, nz, nz, part);  // Px
-  apply_AT(a, s, sy, v2, sw, v3);         // A'y
-  T rd = T(0), dpx = T(0), daty = T(0), dq = T(0);
-  for (int j = tid; j < nz; j += kThreads) {
-    const T d = a.dinv[j];
-    rd = pmax(rd, fabs(d * ((v1[j] + sq[j]) + v2[j])));
-    dpx = pmax(dpx, fabs(d * v1[j]));
-    daty = pmax(daty, fabs(d * v2[j]));
-    dq = pmax(dq, fabs(d * sq[j]));
+  vecmat<T, S, false>(a.pbar, 0, sx, v1, nz, nz, part);  // Px
+  apply_AT<T, S>(a, gp, sy, v2, sw, v3);                 // A'y
+  {
+    T rd[S], dpx[S], daty[S], dq[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      rd[s] = dpx[s] = daty[s] = dq[s] = T(0);
+      for (int j = tid; tid < kThreads && j < nz; j += kThreads) {
+        const T d = a.dinv[j];
+        const int p = j * S + s;
+        rd[s] = pmax(rd[s], fabs(mul_rn(d, add_rn(add_rn(v1[p], sq[p]), v2[p]))));
+        dpx[s] = pmax(dpx[s], fabs(mul_rn(d, v1[p])));
+        daty[s] = pmax(daty[s], fabs(mul_rn(d, v2[p])));
+        dq[s] = pmax(dq[s], fabs(mul_rn(d, sq[p])));
+      }
+    }
+    block_reduce<T, S>(rd, red, mx);
+    block_reduce<T, S>(dpx, red, mx);
+    block_reduce<T, S>(daty, red, mx);
+    block_reduce<T, S>(dq, red, mx);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        fin[kRd * S + s] = rd[s];
+        fin[kRdRel * S + s] = pmax(dpx[s], pmax(daty[s], dq[s]));
+      }
+    }
   }
-  rd = block_reduce(rd, red, mx);
-  dpx = block_reduce(dpx, red, mx);
-  daty = block_reduce(daty, red, mx);
-  dq = block_reduce(dq, red, mx);
-  const T rd_rel = pmax(dpx, pmax(daty, dq));
 
   // ---- primal infeasibility (Farkas) certificate from dy, projected onto
   // the polar of the recession cone of [l, u]
-  T nv = T(0), sup_u = T(0), sup_l = T(0);
-  for (int i = tid; i < m; i += kThreads) {
-    const T uinf = isfinite(sub[i]) ? T(0) : T(1);
-    const T linf = isfinite(slb[i]) ? T(0) : T(1);
-    const T both = uinf * linf;
-    const T uo = uinf * (T(1) - linf);
-    const T lo = linf * (T(1) - uinf);
-    T v = (sy[i] - a.y[om + i]) * (T(1) - both);
-    v = v * (T(1) - uo) + pmin(v, T(0)) * uo;
-    v = v * (T(1) - lo) + pmax(v, T(0)) * lo;
-    sw[i] = v;
-    nv = pmax(nv, fabs(v));
-    const T ucap = uinf == T(0) ? sub[i] : T(0);
-    const T lcap = linf == T(0) ? slb[i] : T(0);
-    sup_u += ucap * pmax(v, T(0));
-    sup_l += lcap * pmin(v, T(0));
+  {
+    T nv[S], sup_u[S], sup_l[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      nv[s] = sup_u[s] = sup_l[s] = T(0);
+      for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+        const int p = i * S + s;
+        const T uinf = isfinite(sub[p]) ? T(0) : T(1);
+        const T linf = isfinite(slb[p]) ? T(0) : T(1);
+        const T both = uinf * linf;
+        const T uo = uinf * (T(1) - linf);
+        const T lo = linf * (T(1) - uinf);
+        T v = mul_rn(sub_rn(sy[p], a.y[om + static_cast<size_t>(s) * m + i]),
+                     T(1) - both);
+        v = fma(v, T(1) - uo, mul_rn(pmin(v, T(0)), uo));
+        v = fma(v, T(1) - lo, mul_rn(pmax(v, T(0)), lo));
+        sw[p] = v;
+        nv[s] = pmax(nv[s], fabs(v));
+        const T ucap = uinf == T(0) ? sub[p] : T(0);
+        const T lcap = linf == T(0) ? slb[p] : T(0);
+        sup_u[s] = fma(ucap, pmax(v, T(0)), sup_u[s]);
+        sup_l[s] = fma(lcap, pmin(v, T(0)), sup_l[s]);
+      }
+    }
+    block_reduce<T, S>(nv, red, mx);
+    block_reduce<T, S>(sup_u, red, sum);
+    block_reduce<T, S>(sup_l, red, sum);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        fin[kNv * S + s] = nv[s];
+        fin[kSup * S + s] = add_rn(sup_u[s], sup_l[s]);
+      }
+    }
   }
-  nv = block_reduce(nv, red, mx);
-  const T sup = block_reduce(sup_u, red, sum) + block_reduce(sup_l, red, sum);
-  apply_AT(a, s, sw, v1, sAx, v3);
-  T atv = T(0);
-  for (int j = tid; j < nz; j += kThreads) atv = pmax(atv, fabs(v1[j]));
-  atv = block_reduce(atv, red, mx);
-  const bool pinf = (a.eps_pinf * nv - atv > T(0)) &&
-                    (-a.thresh * nv - sup > T(0)) && (nv - a.eps_pinf > T(0));
+  apply_AT<T, S>(a, gp, sw, v1, sAx, v3);
+  {
+    T atv[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      atv[s] = T(0);
+      for (int j = tid; tid < kThreads && j < nz; j += kThreads)
+        atv[s] = pmax(atv[s], fabs(v1[j * S + s]));
+    }
+    block_reduce<T, S>(atv, red, mx);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) fin[kAtv * S + s] = atv[s];
+    }
+  }
 
   // ---- dual infeasibility certificate from dx
-  T nvx = T(0), qv = T(0);
-  for (int j = tid; j < nz; j += kThreads) {
-    const T d = sx[j] - a.x[onz + j];
-    v2[j] = d;
-    nvx = pmax(nvx, fabs(d));
-    qv += sq[j] * d;
+  {
+    T nvx[S], qv[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      nvx[s] = qv[s] = T(0);
+      for (int j = tid; tid < kThreads && j < nz; j += kThreads) {
+        const int p = j * S + s;
+        const T d = sub_rn(sx[p], a.x[onz + static_cast<size_t>(s) * nz + j]);
+        v2[p] = d;
+        nvx[s] = pmax(nvx[s], fabs(d));
+        qv[s] = fma(sq[p], d, qv[s]);
+      }
+    }
+    block_reduce<T, S>(nvx, red, mx);
+    block_reduce<T, S>(qv, red, sum);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        fin[kNvx * S + s] = nvx[s];
+        fin[kQv * S + s] = qv[s];
+      }
+    }
   }
-  nvx = block_reduce(nvx, red, mx);
-  qv = block_reduce(qv, red, sum);
-  vecmat(a.pbar, v2, v1, nz, nz, part);  // P dx
-  T pdx = T(0);
-  for (int j = tid; j < nz; j += kThreads) pdx = pmax(pdx, fabs(v1[j]));
-  pdx = block_reduce(pdx, red, mx);
-  apply_A(a, s, v2, sAx);  // A dx
-  const T eps_b = a.eps_dinf * nvx;
-  T up_viol = T(0), lo_viol = T(0);
-  for (int i = tid; i < m; i += kThreads) {
-    const T uinf = isfinite(sub[i]) ? T(0) : T(1);
-    const T linf = isfinite(slb[i]) ? T(0) : T(1);
-    up_viol = pmax(up_viol, pmax(sAx[i] - eps_b, T(0)) * (T(1) - uinf));
-    lo_viol = pmax(lo_viol, pmax(-eps_b - sAx[i], T(0)) * (T(1) - linf));
+  vecmat<T, S, false>(a.pbar, 0, v2, v1, nz, nz, part);  // P dx
+  {
+    T pdx[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      pdx[s] = T(0);
+      for (int j = tid; tid < kThreads && j < nz; j += kThreads)
+        pdx[s] = pmax(pdx[s], fabs(v1[j * S + s]));
+    }
+    block_reduce<T, S>(pdx, red, mx);
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) fin[kPdx * S + s] = pdx[s];
+    }
   }
-  up_viol = block_reduce(up_viol, red, mx);
-  lo_viol = block_reduce(lo_viol, red, mx);
-  const bool dinf = (a.eps_dinf * nvx - pdx > T(0)) &&
-                    (-a.eps_dinf * nvx - qv > T(0)) && up_viol == T(0) &&
-                    lo_viol == T(0) && (nvx - a.eps_dinf > T(0));
-
-  if (tid == 0) {
-    T* st = a.stats + static_cast<size_t>(slot) * 8;
-    st[0] = rp;
-    st[1] = rp_rel;
-    st[2] = rd;
-    st[3] = rd_rel;
-    st[4] = pinf ? T(1) : T(0);
-    st[5] = dinf ? T(1) : T(0);
-    st[6] = nv;
-    st[7] = nvx;
+  apply_A<T, S>(a, gp, v2, sAx);  // A dx
+  {
+    T up_viol[S], lo_viol[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const T eps_b = mul_rn(a.eps_dinf, fin[kNvx * S + s]);
+      up_viol[s] = lo_viol[s] = T(0);
+      for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+        const int p = i * S + s;
+        const T uinf = isfinite(sub[p]) ? T(0) : T(1);
+        const T linf = isfinite(slb[p]) ? T(0) : T(1);
+        up_viol[s] = pmax(up_viol[s],
+                          pmax(sub_rn(sAx[p], eps_b), T(0)) * (T(1) - uinf));
+        lo_viol[s] = pmax(lo_viol[s],
+                          pmax(sub_rn(-eps_b, sAx[p]), T(0)) * (T(1) - linf));
+      }
+    }
+    block_reduce<T, S>(up_viol, red, mx);
+    block_reduce<T, S>(lo_viol, red, mx);
+    if (tid < S) {
+      const int s = tid;
+      const T nv = fin[kNv * S + s], nvx = fin[kNvx * S + s];
+      const T eps_b = mul_rn(a.eps_dinf, nvx);
+      const bool pinf =
+          (fma(a.eps_pinf, nv, -fin[kAtv * S + s]) > T(0)) &&
+          (fma(-a.thresh, nv, -fin[kSup * S + s]) > T(0)) &&
+          (nv - a.eps_pinf > T(0));
+      const bool dinf =
+          (sub_rn(eps_b, fin[kPdx * S + s]) > T(0)) &&
+          (sub_rn(-eps_b, fin[kQv * S + s]) > T(0)) &&
+          up_viol[s] == T(0) && lo_viol[s] == T(0) &&
+          (nvx - a.eps_dinf > T(0));
+      const bool dn = sc[kDone * S + s] != T(0);
+      T* st = a.stats + static_cast<size_t>(slot0 + s) * 8;
+      st[0] = dn ? T(0) : fin[kRp * S + s];
+      st[1] = dn ? T(0) : fin[kRpRel * S + s];
+      st[2] = dn ? T(0) : fin[kRd * S + s];
+      st[3] = dn ? T(0) : fin[kRdRel * S + s];
+      st[4] = (!dn && pinf) ? T(1) : T(0);
+      st[5] = (!dn && dinf) ? T(1) : T(0);
+      st[6] = dn ? T(0) : nv;
+      st[7] = dn ? T(0) : nvx;
+    }
   }
 }
 
@@ -456,9 +854,24 @@ __global__ void __launch_bounds__(kThreads) eig_chunk_kernel(Args<T> a) {
 
 namespace {
 
+template <typename T, int S>
+int launch_group(const Args<T>& a, void* stream) {
+  const size_t smem =
+      sizeof(T) * static_cast<size_t>(S) *
+      (6 * static_cast<size_t>(a.nz) + 8 * static_cast<size_t>(a.m) +
+       2 * a.K + a.gw + kThreads + 32 + kScalars + kFin);
+  cudaError_t e = cudaFuncSetAttribute(
+      eig_chunk_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  eig_chunk_kernel<T, S><<<a.B / S, Layout<T>::block, smem,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
-           int n_iter, double sigma, double alpha, double eps_pinf,
+           int n_iter, int group, double sigma, double alpha, double eps_pinf,
            double eps_dinf, double thresh, void* stream) {
   Args<T> a;
   a.tile_combo = static_cast<const int*>(p[0]);
@@ -504,15 +917,19 @@ int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
   a.eps_dinf = static_cast<T>(eps_dinf);
   a.thresh = static_cast<T>(thresh);
   if (B == 0) return 0;
-  const size_t smem =
-      sizeof(T) * (6 * static_cast<size_t>(nz) + 8 * static_cast<size_t>(m) +
-                   2 * K + gw + kThreads + 32);
-  cudaError_t e = cudaFuncSetAttribute(
-      eig_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  eig_chunk_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (nz > 32 * kLaneCols || group < 1 || bt % group || B % bt)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (group) {
+    case 1: return launch_group<T, 1>(a, stream);
+    case 2: return launch_group<T, 2>(a, stream);
+    case 4:
+      if constexpr (sizeof(T) == 4) return launch_group<T, 4>(a, stream);
+      break;
+    case 8:
+      if constexpr (sizeof(T) == 4) return launch_group<T, 8>(a, stream);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -524,13 +941,13 @@ int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
       void* p13, void* p14, void* p15, void* p16, void* p17, void* p18,        \
       void* p19, void* p20, void* p21, void* p22, void* p23, void* p24,        \
       void* p25, void* p26, void* p27, void* p28, int B, int nz, int m, int K, \
-      int gw, int bt, int n_iter, double sigma, double alpha,                  \
+      int gw, int bt, int n_iter, int group, double sigma, double alpha,       \
       double eps_pinf, double eps_dinf, double thresh, void* stream) {         \
     void* const p[29] = {p0,  p1,  p2,  p3,  p4,  p5,  p6,  p7,  p8,  p9,      \
                          p10, p11, p12, p13, p14, p15, p16, p17, p18, p19,     \
                          p20, p21, p22, p23, p24, p25, p26, p27, p28};         \
-    return launch<T>(p, B, nz, m, K, gw, bt, n_iter, sigma, alpha, eps_pinf,   \
-                     eps_dinf, thresh, stream);                                \
+    return launch<T>(p, B, nz, m, K, gw, bt, n_iter, group, sigma, alpha,      \
+                     eps_pinf, eps_dinf, thresh, stream);                      \
   }
 
 EIG_CHUNK_ENTRY(eig_chunk_f32, float)

@@ -883,10 +883,10 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
     rho_hi = RHO_MAX / (settings.rho_bar * RHO_EQ_SCALE)
     rescue_on = bool(settings.eig_rho_rescue and settings.stall_exit_chunks)
 
-    def body(sd, cy: _Carry, chunk: int, mult: int):
-        """One check chunk; returns the new carry and the host-read
-        all-done flag (the chunk's one device sync, shared with the
-        refresh decision)."""
+    def body(sd, cy: _Carry, chunk: int, mult: int, n_live: int):
+        """One check chunk on ``n_live`` running problems; returns the new
+        carry and the host-read count of running problems after it (the
+        chunk's one device sync, shared with the refresh decision)."""
         done = cy.done
         nc = chunk + mult
         rho_scale = cy.rho_scale
@@ -897,6 +897,7 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             prob.eig_w33row, gsel_s, scat_s, rsel_s, gscat_s,
             prob.rho_vec, prob.Einv, prob.Dinv,
             done=done,
+            n_live=n_live,
             n_iter=settings.check_every * mult,
             sigma=sigma,
             alpha=float(settings.alpha),
@@ -990,8 +991,8 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             # rho enters the solve exactly through dg; only debris-active
             # problems carry a (combo, r, s)-dependent inner inverse
             mask = trig & (sd["ss"] != 0.0)
-            any_mask, all_done = torch.stack(
-                [mask.any(), done.all()]).tolist()
+            any_mask, n_live = torch.stack(
+                [mask.any().long(), (~done).sum()]).tolist()
             if any_mask:
                 tinv = refresh(sd, tinv, new_scale, mask)
             ref = torch.where(
@@ -1000,13 +1001,13 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
                 ref)
             rho_scale = new_scale
         else:
-            all_done = bool(done.all())
+            n_live = int((~done).sum())
 
         done_chunk = cy.done_chunk.masked_fill(done & ~cy.done, nc)
         new = _Carry(x, y, z, rp, rd, done, status, tinv, rho_scale, ref,
                      best_rp, best_rd, last_prog, done_chunk, tp, td,
                      rescue_cnt, rescue)
-        return new, bool(all_done)
+        return new, n_live
 
     slot_pos = torch.arange(n_slots, **i64)
     group_of_slot = (slot_pos[:, None] >= bounds[None, :n_groups - 1]).sum(1)
@@ -1033,28 +1034,28 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         post_rescue=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
     )
     chunk = 0
-    all_done = bool(cy.done.all())
+    n_live = int((~cy.done).sum())
 
-    def run(sd, cy, chunk, all_done, end, mult):
-        while not all_done and chunk + mult <= end:
-            cy, all_done = body(sd, cy, chunk, mult)
+    def run(sd, cy, chunk, n_live, end, mult):
+        while n_live and chunk + mult <= end:
+            cy, n_live = body(sd, cy, chunk, mult, n_live)
             chunk += mult
-        return cy, chunk, all_done
+        return cy, chunk, n_live
 
     prev_end = 0
     for b in settings.eig_compact_chunks:
         end = min(int(b), n_checks)
         if end <= prev_end:
             continue
-        cy, chunk, all_done = run(sdata, cy, chunk, all_done, end, 1)
+        cy, chunk, n_live = run(sdata, cy, chunk, n_live, end, 1)
         sdata, cy = compact(sdata, cy)
         prev_end = end
     mult = max(1, int(settings.eig_tail_mult))
     if mult > 1 and prev_end + mult <= n_checks:
         tail_end = prev_end + ((n_checks - prev_end) // mult) * mult
-        cy, chunk, all_done = run(sdata, cy, chunk, all_done, tail_end, mult)
+        cy, chunk, n_live = run(sdata, cy, chunk, n_live, tail_end, mult)
     if prev_end < n_checks:
-        cy, chunk, all_done = run(sdata, cy, chunk, all_done, n_checks, 1)
+        cy, chunk, n_live = run(sdata, cy, chunk, n_live, n_checks, 1)
 
     # ---- scatter back to problem order: dummy slots (src == B) land in a
     # spare last entry that is dropped

@@ -11,7 +11,9 @@ is documented there). Three pieces:
 * ``eig_chunk`` — the dispatching wrapper. A CPU tensor goes to the twin;
   a CUDA tensor goes to the hand-written kernel ``csrc/eig_chunk.cu``
   (built with nvcc at first use) or the call raises. Done rows are passed
-  through with zero stats, per problem, in both versions.
+  through with zero stats, per problem, in both versions. The kernel works
+  on groups of S slots per block; ``eig_group`` picks S from the call's
+  live count.
 * ``tinv_refresh`` / ``tinv_safe_refresh`` — batched Newton–Schulz refresh
   of each problem's T⁻¹; plain batched matmuls, as the JAX package computes
   them in XLA.
@@ -185,12 +187,37 @@ def eig_chunk_ref(
 # fused ADMM chunk: dispatching wrapper and the CUDA kernel
 # ---------------------------------------------------------------------------
 
+# slots per block of the CUDA kernel: 8 slots' vectors (~25 KB each in
+# fp32) fit the 227 KB of shared memory a block can hold; in fp64 (~50 KB
+# each) 4 would, but 4 fp64 slots' registers spill, so 2
+GROUP_CAP = {torch.float32: 8, torch.float64: 2}
+# one block per SM of an H100: the groups of a chunk should fill one wave
+GROUPS_PER_CARD = 132
+
+
+def eig_group(n_live: int, bt: int, dtype) -> int:
+    """Slots per block S for a chunk with ``n_live`` running slots in tiles
+    of ``bt``: the smallest power of two whose groups, with one partial
+    group in each of the four combos, fit one wave of ``GROUPS_PER_CARD``
+    blocks; within ``GROUP_CAP[dtype]`` and dividing ``bt``. A block
+    iterates slower the more slots it holds (chip_smoke's sweep over S and
+    live counts), so S grows only when another wave would start. Pure: the
+    live count comes from a host read the solver makes anyway."""
+    cap = GROUP_CAP[dtype]
+    S = 1
+    while (2 * S <= cap and bt % (2 * S) == 0
+           and -(-n_live // S) + 4 > GROUPS_PER_CARD):
+        S *= 2
+    return S
+
+
 def eig_chunk(
     tile_combo, tinv, scal, qbar, lbar, ubar, dg, x, y, z,
     Ast, Wst, YTst, pbar, K1, w33row, gsel_s, scat_s, rsel_s, gscat_s,
     rho_vec, einv, dinv, *, n_iter: int, sigma: float, alpha: float,
     eps_pinf: float, eps_dinf: float, pinf_margin: float, bt: int = 32,
-    done=None, wuu_row=None, dmask=None,
+    done=None, wuu_row=None, dmask=None, n_live: Optional[int] = None,
+    group: Optional[int] = None,
 ):
     """Run ``n_iter`` fused ADMM iterations with the shared-basis solve.
 
@@ -203,7 +230,12 @@ def eig_chunk(
     (B,8) = rp, rp_rel, rd, rd_rel, pinf, dinf, ‖Δy‖∞, ‖Δx‖∞.
 
     CPU tensors run ``eig_chunk_ref``; CUDA tensors run the CUDA kernel and
-    count one launch in ``eig_chunk.launches``; anything else raises."""
+    count one launch in ``eig_chunk.launches``; anything else raises.
+
+    ``n_live`` (the count of not-done slots, None: all B) picks the
+    kernel's slots per block, ``eig_group(n_live, bt, dtype)``; ``group``
+    forces it (a power of two up to ``GROUP_CAP[dtype]`` that divides
+    ``bt``). Neither moves a bit of the result. The twin ignores both."""
     kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha, eps_pinf=eps_pinf,
               eps_dinf=eps_dinf, pinf_margin=pinf_margin, bt=bt, done=done,
               wuu_row=wuu_row, dmask=dmask)
@@ -214,7 +246,7 @@ def eig_chunk(
         return eig_chunk_ref(*args, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"eig_chunk: no kernel for device {x.device}")
-    return _eig_chunk_cuda(*args, **kw)
+    return _eig_chunk_cuda(*args, n_live=n_live, group=group, **kw)
 
 
 eig_chunk.launches = 0
@@ -229,7 +261,7 @@ def _lib():
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for suffix in _C_TYPES.values():
             fn = getattr(lib, f"eig_chunk_{suffix}")
-            fn.argtypes = [P] * 29 + [I] * 7 + [D] * 5 + [P]
+            fn.argtypes = [P] * 29 + [I] * 8 + [D] * 5 + [P]
             fn.restype = I
         lib._eig_chunk_typed = True
     return lib
@@ -239,7 +271,7 @@ def _eig_chunk_cuda(
     tile_combo, tinv, scal, qbar, lbar, ubar, dg, x, y, z,
     Ast, Wst, YTst, pbar, K1, w33row, gsel_s, scat_s, rsel_s, gscat_s,
     rho_vec, einv, dinv, *, n_iter, sigma, alpha, eps_pinf, eps_dinf,
-    pinf_margin, bt, done, wuu_row, dmask,
+    pinf_margin, bt, done, wuu_row, dmask, n_live, group,
 ):
     B, nz = x.shape
     m, K = y.shape[1], tinv.shape[1]
@@ -254,6 +286,15 @@ def _eig_chunk_cuda(
                          "block swap of two gw-halves)")
     if B % bt:
         raise ValueError(f"eig_chunk: B={B} is not a multiple of bt={bt}")
+    if nz > 256:
+        raise ValueError(f"eig_chunk: nz={nz} > 256 (the kernel keeps a "
+                         "row's vector in eight registers per lane)")
+    if group is None:
+        group = eig_group(B if n_live is None else n_live, bt, dt)
+    if group not in (1, 2, 4, 8) or group > GROUP_CAP[dt] or bt % group:
+        raise ValueError(f"eig_chunk: group={group} slots per block; it must "
+                         f"be a power of two up to {GROUP_CAP[dt]} for {dt} "
+                         f"that divides bt={bt}")
     n_combo = Ast.shape[0]
     shapes = dict(
         tile_combo=(tile_combo, (B // bt,), torch.int32),
@@ -292,7 +333,7 @@ def _eig_chunk_cuda(
         rho_vec, einv, dinv, wuu_row, dmask, xo, yo, zo, stats)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, B, nz, m, K, gw, bt, n_iter, float(sigma),
+        err = fn(*ptrs, B, nz, m, K, gw, bt, n_iter, group, float(sigma),
                  float(alpha), float(eps_pinf), float(eps_dinf),
                  float(max(eps_pinf, pinf_margin)), stream)
     if err != 0:

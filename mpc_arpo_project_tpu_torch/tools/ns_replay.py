@@ -1,21 +1,24 @@
-"""Replay saved Newton–Schulz kernel calls on another tree's kernels and
-compare their results bit for bit.
+"""Replay saved kernel calls on another tree's kernels and compare their
+results bit for bit.
 
     python3 chip_smoke.py --ns-dump FILE
     python3 mpc_arpo_project_tpu_torch/tools/ns_replay.py --tree DIR FILE
 
-The first command saves every ``ns_fused`` and ``newton_schulz_inverse``
-kernel call of chip_smoke's comparisons: its inputs (fp32, cast to the
-call's type as chip_smoke casts them), keywords, the sha256 of its X (NaNs
-made one NaN) and its residuals. The second imports
-``mpc_arpo_project_tpu_torch`` from ``DIR`` (another checkout, e.g. an
-older commit), runs each call through that tree's kernel on the card, and
-reports, per call, whether X and the residuals are identical. Keywords the
-other tree's entry does not take (``n_need``) are dropped. Each call is
-also timed on that tree (median of 5 CUDA-event runs after one warm-up),
-so two trees' kernels can be timed on the same inputs in one session.
-Exits 1 if any call differs, 2 without a card. Needs torch and a CUDA
-device, nothing else.
+The first command saves every ``eig_chunk``, ``ns_fused`` and
+``newton_schulz_inverse`` kernel call of chip_smoke's comparisons: its
+inputs (fp32, cast to the call's type as chip_smoke casts them), keywords,
+and what the kernel returned (``eig_chunk``: the sha256 of x, y, z and the
+stats; Newton–Schulz: the sha256 of X and the residuals; NaNs made one
+NaN). The second imports ``mpc_arpo_project_tpu_torch`` from ``DIR``
+(another checkout, e.g. an older commit), runs each call through that
+tree's kernel on the card, and reports, per call, whether the results are
+identical. Keywords the other tree's entry does not take (``n_need``,
+``n_live``, ``group``) are dropped. Where the tree's ``eig_chunk`` takes
+``group``, each call also runs with every slots-per-block S the call's
+``bt`` and type allow. Each run is timed on that tree (median of 5
+CUDA-event runs after one warm-up), so two trees' kernels can be timed on
+the same inputs in one session. Exits 1 if any run differs, 2 without a
+card. Needs torch and a CUDA device, nothing else.
 """
 
 from __future__ import annotations
@@ -59,6 +62,18 @@ def _time_ms(fn, n=5):
     return statistics.median(times)
 
 
+def _eig_runs(admm_eig, c, dt):
+    """(label, extra keywords) of the runs of one saved ``eig_chunk`` call:
+    the call's own, then each slots-per-block S the tree can force."""
+    params = inspect.signature(admm_eig.eig_chunk).parameters
+    runs = [("policy", {})]
+    if "group" in params:
+        cap = admm_eig.GROUP_CAP[dt]
+        runs += [(f"S={S}", {"group": S}) for S in (1, 2, 4, 8)
+                 if S <= cap and c["kw"]["bt"] % S == 0]
+    return runs, params
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True,
@@ -68,7 +83,7 @@ def main(argv=None) -> int:
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm_pallas
+    from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
 
     if not os.path.abspath(admm_pallas.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {admm_pallas.__file__}, not from {tree}")
@@ -79,17 +94,39 @@ def main(argv=None) -> int:
     calls = torch.load(args.dump, weights_only=False)["calls"]
     dev = torch.device("cuda")
     moved = {}
-    bad = 0
+
+    def to_dev(t, dt):
+        if not torch.is_tensor(t):
+            return t
+        key = (id(t), dt)
+        if key not in moved:
+            v = t.to(dev)
+            moved[key] = v.to(dt) if v.is_floating_point() else v
+        return moved[key]
+
+    bad = runs_total = 0
     for c in calls:
-        entry = getattr(admm_pallas, c["entry"])
         dt = getattr(torch, c["dtype"])
-        a = []
-        for t in c["args"]:
-            key = (id(t), dt)
-            if key not in moved:
-                v = t.to(dev)
-                moved[key] = v.to(dt) if v.is_floating_point() else v
-            a.append(moved[key])
+        a = [to_dev(t, dt) for t in c["args"]]
+        if c["entry"] == "eig_chunk":
+            runs, params = _eig_runs(admm_eig, c, dt)
+            kw = {k: to_dev(v, dt) for k, v in c["kw"].items()
+                  if k in params}
+            for label, extra in runs:
+                kwr = dict(kw, **extra)
+                outs = admm_eig.eig_chunk(*a, **kwr)
+                torch.cuda.synchronize()
+                same = [digest(o) == d for o, d in zip(outs, c["digests"])]
+                bad += not all(same)
+                runs_total += 1
+                del outs
+                ms = _time_ms(lambda: admm_eig.eig_chunk(*a, **kwr))
+                print(f"{c['label']} [{label}]: " + ", ".join(
+                    f"{n} {'identical' if ok else 'DIFFERS'}"
+                    for n, ok in zip(("x", "y", "z", "stats"), same))
+                    + f"; {ms:.3f} ms", flush=True)
+            continue
+        entry = getattr(admm_pallas, c["entry"])
         kw = dict(c["kw"])
         if "n_need" in inspect.signature(entry).parameters:
             kw["n_need"] = c["n_need"]
@@ -99,6 +136,7 @@ def main(argv=None) -> int:
         r_cpu = r.cpu()
         same_r = _same(r_cpu, c["res"])
         bad += not (same_x and same_r)
+        runs_total += 1
         del x, r
         ms = _time_ms(lambda: entry(*a, **kw))
         print(f"{c['label']}: X {'identical' if same_x else 'DIFFERS'}, "
@@ -106,8 +144,8 @@ def main(argv=None) -> int:
               + ("" if same_r else " (max |diff| "
                  f"{float((r_cpu - c['res']).abs().nan_to_num().max()):.3e})")
               + f"; {ms:.3f} ms", flush=True)
-    print(f"ns_replay: {len(calls) - bad} of {len(calls)} calls bit-identical "
-          f"on {admm_pallas.__file__}")
+    print(f"ns_replay: {runs_total - bad} of {runs_total} runs of "
+          f"{len(calls)} calls bit-identical on {admm_pallas.__file__}")
     return 1 if bad else 0
 
 

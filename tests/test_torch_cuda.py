@@ -9,7 +9,9 @@ Elsewhere every test here skips. Inputs are real. For ``eig_chunk``: the
 first chunk of a warm-started port solve on the ``tests/test_admm_eig.py``
 problem (Nx=40, B=8, tile 4, all four combos, debris on half the rows, two
 inactive problems), and a chunk of an infeasible solve in which the Farkas
-certificate fires. For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
+certificate fires; its slot groups (S slots per block) are held to the
+one-slot instance bit for bit on those tiles widened from 4 to 8 slots.
+For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
 ``newton_schulz_inverse``): the ``tests/test_admm_pallas.py`` problem
 (Nx=40 unpadded, nz=201, m=406, B=8) through ``pallas_inputs``. Tolerance
 1e-10 per row in fp64: each kernel and its twin run the same arithmetic in
@@ -426,3 +428,77 @@ def test_cuda_compaction_is_bit_exact(gpu):
         assert torch.equal(r.done_iters, base.done_iters), chunks
         assert torch.equal(r.x, base.x), chunks
         assert torch.equal(r.state.minv, base.state.minv), chunks
+
+
+
+def _widen(a, k, f):
+    """The chunk inputs with each tile of ``bt`` slots followed by ``f - 1``
+    copies of itself: tiles of ``f * bt`` slots of one combo, so that every
+    slots-per-block S up to ``f * bt`` is allowed, and each slot's result
+    can be held against its copies' (a slot's position moves no bit)."""
+    bt = k["bt"]
+
+    def per_slot(t):
+        tiles = t.reshape(-1, bt, *t.shape[1:])
+        return tiles.repeat(1, f, *([1] * (t.dim() - 1))).reshape(
+            -1, *t.shape[1:]).contiguous()
+
+    # args 1-9 are per slot: tinv, scal, qbar, lbar, ubar, dg, x, y, z
+    a2 = tuple(per_slot(v) if 1 <= i <= 9 else v for i, v in enumerate(a))
+    return a2, dict(k, bt=f * bt, done=per_slot(k["done"]))
+
+
+def _on_card(a, k, dtype, gpu):
+    cv = lambda v: (v.to(gpu, dtype) if v.is_floating_point() else v.to(gpu))
+    return (tuple(cv(v) for v in a),
+            {kk: cv(v) if torch.is_tensor(v) else v for kk, v in k.items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["warm", "infeasible", "ragged"])
+def test_cuda_slot_groups_are_bit_identical(gpu, chunks, dtype, case):
+    """Every slots-per-block S the type allows (up to 8 in fp32, 2 in
+    fp64) gives the one-slot (S = 1) instance's x, y, z and stats bit for
+    bit, and so does the policy's S for the live count: on the fixture's
+    tiles of 4 widened to 8 (so S = 8 runs in fp32), with groups that mix done and live slots ('warm' has two
+    inactive problems; 'ragged' leaves 5 live slots of each copy), and each
+    slot equal to its copy in the widened tile."""
+    a, k = chunks["infeasible" if case == "infeasible" else "warm"]
+    if case == "ragged":
+        done = k["done"].clone()
+        done[torch.nonzero(~done).squeeze(1)[5:]] = True
+        k = dict(k, done=done)
+    ag, kg = _on_card(*_widen(a, k, 2), dtype, gpu)
+    bt, n_live = kg["bt"], int((~kg["done"]).sum())
+    assert case != "ragged" or n_live == 10
+    groups = [S for S in (1, 2, 4, 8)
+              if S <= admm_eig.GROUP_CAP[dtype] and bt % S == 0]
+    assert groups[-1] == (8 if dtype == torch.float32 else 2)
+    outs = {}
+    for S in groups:
+        n0 = admm_eig.eig_chunk.launches
+        outs[S] = admm_eig.eig_chunk(*ag, **kg, group=S)
+        torch.cuda.synchronize()
+        assert admm_eig.eig_chunk.launches == n0 + 1
+    outs["policy"] = admm_eig.eig_chunk(*ag, **kg, n_live=n_live)
+    for S, out in outs.items():
+        for o, r in zip(out, outs[1]):
+            assert _same(o, r), S
+    for o in outs[1]:
+        tiles = o.reshape(-1, 2, bt // 2, o.shape[1])
+        assert _same(tiles[:, 0], tiles[:, 1])
+
+
+def test_cuda_wrapper_rejects_a_group_the_kernel_does_not_take(gpu, chunks):
+    """A slots-per-block S that does not divide bt, is not a power of two,
+    or exceeds the type's cap raises, and no launch is counted."""
+    a, k = chunks["warm"]
+    n0 = admm_eig.eig_chunk.launches
+    for dtype, S in ((torch.float32, 8), (torch.float64, 4),
+                     (torch.float64, 3), (torch.float32, 16),
+                     (torch.float32, 0)):
+        with pytest.raises(ValueError, match="group"):
+            admm_eig.eig_chunk(*_on_card(a, k, dtype, gpu)[0],
+                               **_on_card(a, k, dtype, gpu)[1], group=S)
+    assert k["bt"] % 8
+    assert admm_eig.eig_chunk.launches == n0

@@ -156,3 +156,46 @@ def test_tinv_safe_refresh_matches_jax(refresh_inputs, cold_cap):
     jx, tx, _, _ = _refresh_both(ri, ri["X0"], kw, safe=True)
     np.testing.assert_allclose(tx, jx, rtol=TOL, atol=TOL * np.abs(jx).max())
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bt", [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64])
+def test_eig_group_divides_bt_within_the_cap(dtype, bt):
+    """The slots per block of the CUDA kernel divide the tile (so a group
+    is combo-pure), are a power of two and stay within the type's cap
+    (shared memory holds 8 fp32 slots' vectors; 2 fp64 slots, whose
+    registers spill at 4), at every live count."""
+    cap = teig.GROUP_CAP[dtype]
+    assert cap == (8 if dtype == torch.float32 else 2)
+    for n_live in (0, 1, 5, 31, 100, 263, 264, 528, 1000, 1056, 1152, 10**6):
+        S = teig.eig_group(n_live, bt, dtype)
+        assert bt % S == 0 and S & (S - 1) == 0 and 1 <= S <= cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_group_follows_the_census(dtype):
+    """One slot per block while one block per live slot (and a partial
+    group per combo) fits one wave of the card's SMs: the chunks of 1-128
+    live slots, 70% of the parent kernel's chunk span; the cap at a full
+    1152-slot chunk; never fewer slots per block for more live slots; and
+    the groups of a chunk fit one wave whenever the cap allows."""
+    per_card = teig.GROUPS_PER_CARD
+    for n_live in (1, 8, 11, 32, 53, 128):
+        assert teig.eig_group(n_live, 32, dtype) == 1
+    assert teig.eig_group(129, 32, dtype) == 2
+    assert teig.eig_group(1152, 32, dtype) == teig.GROUP_CAP[dtype]
+    sizes = [teig.eig_group(n, 32, dtype) for n in range(0, 2000, 7)]
+    assert sizes == sorted(sizes)
+    for n_live in range(1, 1153):
+        S = teig.eig_group(n_live, 32, dtype)
+        assert S == teig.GROUP_CAP[dtype] or -(-n_live // S) + 4 <= per_card
+
+
+def test_eig_chunk_twin_ignores_the_group_keywords(chunks):
+    """On the CPU the wrapper runs the twin whatever ``n_live`` and
+    ``group`` say."""
+    a, k, ref, _ = chunks["warm"]
+    for extra in (dict(n_live=3), dict(group=4), dict(n_live=3, group=1)):
+        out = teig.eig_chunk(*a, **k, **extra)
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r)

@@ -82,9 +82,11 @@ def capture_chunks(prob, coeffs, l, u, state, settings, active=None):
     calls = []
 
     def rec(*a, **k):
+        # n_live only sizes the CUDA kernel's slot groups: the twins and
+        # the JAX kernels take no such keyword
         calls.append((tuple(v.clone() if torch.is_tensor(v) else v for v in a),
                       {kk: v.clone() if torch.is_tensor(v) else v
-                       for kk, v in k.items()}))
+                       for kk, v in k.items() if kk != "n_live"}))
         return real(*a, **k)
 
     # the solver's view of the kernel module records; the module itself
