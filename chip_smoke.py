@@ -7,9 +7,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 
 1. device: the card's name and power limit, torch and CUDA versions; fp32
    matmuls are pinned to full precision (no TF32);
-2. build: compiles the four CUDA libraries from ``csrc/`` with nvcc, all at
-   once (one nvcc per source), and logs ptxas' register and shared-memory
-   lines;
+2. build: compiles the six CUDA libraries from ``csrc/`` with nvcc, all at
+   once (one nvcc per source; the 'pallas' chunk kernel is three, by type
+   and layout), and logs ptxas' register and spill lines;
 3. kernels against plain, at flagship shapes (Nx=50: nz=256, m=512, B=1024)
    on real inputs of the flagship engine (the first solve, and the solve
    after five control steps), in fp32 and fp64, each timed by CUDA events
@@ -18,12 +18,17 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
      11 live slots (the costliest class of the chunk census), with its
      bound and HBM floor, and a sweep of its slots per block S over live
      counts (the evidence for ``admm_eig.eig_group``);
-   - ``admm_chunk``, ``ns_fused`` (warm and cold, on a need mask that
-     includes rows poisoned with inf and NaN; the full-width cold first
-     refresh; 3 needy rows of a 32-row call, the costliest class of the
-     refresh census) and ``newton_schulz_inverse`` (on the per-problem M of
-     ``_build_M``) ('pallas' engine); the Newton–Schulz cases are timed in
-     fp32 and fp64 beside ``torch.linalg.inv`` of the same M;
+   - ``admm_chunk``, also on a 32-row overtime lane of the after-5-steps
+     call with 9 live slots (the costliest class of its chunk census),
+     with its bound, and a sweep of its layouts (cluster size C, slots per
+     block S) over live counts (the evidence for
+     ``admm_pallas.admm_layout``); ``ns_fused`` (warm and cold, on a need
+     mask that includes rows poisoned with inf and NaN; the full-width
+     cold first refresh; 3 needy rows of a 32-row call, the costliest class
+     of the refresh census) and ``newton_schulz_inverse`` (on the
+     per-problem M of ``_build_M``) ('pallas' engine); the Newton–Schulz
+     cases are timed in fp32 and fp64 beside ``torch.linalg.inv`` of the
+     same M;
 4. the chunk-parts probe (``tools/kernel_probe.py`` of the port) at its
    flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32):
    each of its six kernels against its twin on unit-gain inputs (launch
@@ -39,7 +44,8 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    alive-solves/s, the status mix, the mean ADMM iterations per step, a
    per-step split from CUDA events and the peak device memory; 'eig'
    also a census of its ``eig_chunk`` calls by live count, 'pallas' a
-   census of its ``ns_fused`` calls by (rows, warm/cold, needy count);
+   census of its ``admm_chunk`` calls by live count and lane width and of
+   its ``ns_fused`` calls by (rows, warm/cold, needy count);
 8. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination and ``done_iters``, and trajectories within 1e-6; for
@@ -48,9 +54,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 9. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
 
-With ``--ns-dump FILE`` it also saves every ``eig_chunk`` and
-Newton–Schulz kernel call of phase 3's comparisons (inputs, keywords, the
-digests of what the kernel returned) for
+With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
+and Newton–Schulz kernel call of phase 3's comparisons (inputs, keywords,
+the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
@@ -67,6 +73,7 @@ import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 
@@ -209,8 +216,10 @@ def _chunk_err(out, ref, parts=False):
 
 def _plain(k):
     """A kernel call's keywords without those that only steer the CUDA
-    kernel (``eig_chunk``'s ``n_live`` and ``group``), for its twin."""
-    return {kk: v for kk, v in k.items() if kk not in ("n_live", "group")}
+    kernel (``eig_chunk``'s ``n_live`` and ``group``, ``admm_chunk``'s
+    ``n_live`` and ``layout``), for its twin."""
+    return {kk: v for kk, v in k.items()
+            if kk not in ("n_live", "group", "layout")}
 
 
 def _launch(kernel, a, k, label):
@@ -227,7 +236,7 @@ def _launch(kernel, a, k, label):
 def compare_kernel(kernel, plain, args, kw, dtype, tol, label, record=None):
     """Run a chunk kernel (``eig_chunk`` or ``admm_chunk``) and its twin on
     the same inputs in ``dtype``; returns (max abs err, summary dict).
-    Raises if they disagree beyond ``tol``. An ``eig_chunk`` call goes to
+    Raises if they disagree beyond ``tol``. The kernel's call goes to
     ``record`` (a ``CallRecord``) when one is given.
 
     Deviation per row: see ``_chunk_err``. fp64 holds every not-done row
@@ -244,7 +253,7 @@ def compare_kernel(kernel, plain, args, kw, dtype, tol, label, record=None):
     a, k = _cast(args, kw, dtype)
     ker = _launch(kernel, a, k, label)
     if record is not None:
-        record.add_chunk(args, kw, dtype, label, ker)
+        record.add_chunk(kernel.__name__, args, kw, dtype, label, ker)
     ref = plain(*a, **_plain(k))
     live = ~k["done"]
     n_live = int(live.sum())
@@ -297,8 +306,9 @@ class CallRecord:
     """The kernel calls of the comparisons that ``--ns-dump`` saves for
     ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``: inputs (one CPU copy
     each, before the cast to the call's type), keywords and what the kernel
-    returned (Newton–Schulz: the digest of X and the residuals; eig_chunk:
-    the digests of x, y, z and stats)."""
+    returned (Newton–Schulz: the digest of X and the residuals; the chunk
+    kernels ``eig_chunk`` and ``admm_chunk``: the digests of x, y, z and
+    stats)."""
 
     def __init__(self):
         self.calls, self._cpu = [], {}
@@ -318,11 +328,11 @@ class CallRecord:
             args=tuple(map(self._keep, args)), kw=dict(kw), n_need=n_need,
             dtype=str(dtype)[6:], x_digest=digest(xk), res=rk.cpu()))
 
-    def add_chunk(self, args, kw, dtype, label, outs):
+    def add_chunk(self, entry, args, kw, dtype, label, outs):
         from mpc_arpo_project_tpu_torch.tools.ns_replay import digest
 
         self.calls.append(dict(
-            label=label, entry="eig_chunk", args=tuple(map(self._keep, args)),
+            label=label, entry=entry, args=tuple(map(self._keep, args)),
             kw={k: self._keep(v) for k, v in kw.items()},
             dtype=str(dtype)[6:], digests=[digest(o) for o in outs]))
 
@@ -583,6 +593,34 @@ def _with_live(args, kw, n_live):
     return dict(kw, done=~keep, n_live=int(keep.sum()))
 
 
+# the costliest class of the 'pallas' main path's chunk census (PERF.md
+# section 5: calls of 1-32 live slots in the 32-row overtime lanes, 9.0
+# live on average, 35% of the chunk span on the one-slot kernel), timed beside
+# the 1024-slot chunk: (lane rows, live slots)
+ADMM_COSTLY = (32, 9)
+# live counts of the sweep over layouts that sets admm_pallas.admm_layout
+ADMM_SWEEP_LIVE = (1, 9, 33, 66, 128, 264, 528, 1024)
+
+
+def _first_live(kw, n_live):
+    """``kw`` with all but the first ``n_live`` live slots marked done."""
+    import torch
+
+    live = torch.nonzero(~kw["done"]).squeeze(1)
+    done = torch.ones_like(kw["done"])
+    done[live[:n_live]] = False
+    return dict(kw, done=done, n_live=min(n_live, live.numel()))
+
+
+def _lane(args, kw, rows, n_live):
+    """An overtime lane's call: the first ``rows`` rows of a chunk call
+    (the per-slot arguments are the first ten), the first ``n_live`` of
+    their live slots live."""
+    a = tuple(v[:rows].contiguous() if i < 10 else v
+              for i, v in enumerate(args))
+    return a, _first_live(dict(kw, done=kw["done"][:rows]), n_live)
+
+
 def check_eig_kernel(engine, B, record=None):
     """``eig_chunk`` against its twin on the first solve's and the
     after-5-steps chunk (all live slots) and on the after-5-steps chunk cut
@@ -653,40 +691,119 @@ def check_eig_kernel(engine, B, record=None):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def hold_lane(a_full, k_full, a, k, label, record=None):
+    """The fp32 ``admm_chunk`` on an overtime lane's call (the first rows
+    of the full call ``a_full``, ``k_full``, some of their live slots live)
+    held bit for bit to the full call's rows, which ``compare_kernel`` held
+    to the twin: a slot's result depends on no other slot and on no layout.
+    Not to the fp32 twin itself: the twin's fp32 rows depend on the batch
+    its products run in, and the first live rows of this input include the
+    row whose kernel result is 1.5e-4 from fp64 by the round-off of the
+    kernel's stack7 summation order (ROADMAP section 3, closed), which the
+    twin's 4x-plus-1e-4 rule passes in the full call but not at every batch
+    size. Its distances from the twins are logged. Raises unless the bits
+    agree and the done rows pass through with zero stats."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm_pallas
+
+    full = admm_pallas.admm_chunk(*a_full, **k_full)
+    out = _launch(admm_pallas.admm_chunk, a, k, label)
+    if record is not None:
+        record.add_chunk("admm_chunk", a, k, torch.float32, label, out)
+    rows = a[6].shape[0]
+    live, done = ~k["done"], k["done"]
+    same = all(torch.equal(o[live], f[:rows][live]) for o, f in zip(out, full))
+    passed = (all(torch.equal(o[done], v[done]) for o, v in
+                  zip(out[:3], a[6:9])) and bool((out[3][done] == 0).all()))
+    a64, k64 = _cast(a, k, torch.float64)
+    e_ker = _chunk_err(out, admm_pallas.admm_chunk_ref(
+        *a64, **_plain(k64)))[live]
+    e_ref = _chunk_err(admm_pallas.admm_chunk_ref(*a, **_plain(k)),
+                       admm_pallas.admm_chunk_ref(*a64, **_plain(k64)))[live]
+    log(f"  [{label}] {int(live.sum())} live rows bit-identical to the full "
+        f"call's: {same}; done rows passed through: {passed}; vs fp64: "
+        f"kernel {float(e_ker.max()):.3e}, plain {float(e_ref.max()):.3e}")
+    if not (same and passed):
+        raise AssertionError(f"{label}: the lane's rows differ from the full "
+                             "call's or its done rows did not pass through")
+
+
+def admm_sweep(a, k):
+    """``admm_chunk`` in every layout (C, S) of its type against live count
+    on the after-5-steps call (median of 10 each), beside the layout
+    ``admm_layout`` picks; and the groups a wave of this card holds per
+    layout, beside the H100 table the policy defaults to."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm_pallas
+
+    nz, m, gw3 = a[6].shape[1], a[7].shape[1], a[12].shape[1]
+    for dt in (torch.float32, torch.float64):
+        waves = admm_pallas._waves(dt, nz, m, gw3 // 3, a[6].device)
+        log(f"  admm layouts, {str(dt)[6:]}: groups a wave holds on this card "
+            f"{waves}; the policy's table {admm_pallas.WAVES[dt]}")
+        a_d, k_d = _cast(a, k, dt)
+        for live in ADMM_SWEEP_LIVE:
+            kl = _first_live(k_d, live)
+            row = {lay: time_ms(lambda: admm_pallas.admm_chunk(
+                *a_d, **dict(kl, layout=lay)), 10)
+                for lay in admm_pallas.LAYOUTS[dt]}
+            log(f"  layout sweep, {str(dt)[6:]}, {kl['n_live']} live: "
+                + ", ".join(f"(C, S)={c, s} {t:.3f} ms"
+                            for (c, s), t in row.items())
+                + f"; policy {admm_pallas.admm_layout(kl['n_live'], dt)}")
+
+
 def check_pallas_kernels(engine, B, record=None):
     """``admm_chunk``, ``ns_fused`` and ``newton_schulz_inverse`` against
     their twins on inputs of the 'pallas' flagship engine; returns their
-    JSON entries (without launches). The Newton–Schulz kernel calls of the
-    comparisons go to ``record`` when one is given."""
+    JSON entries (without launches). The kernel calls of the comparisons
+    go to ``record`` when one is given."""
     import torch
     from mpc_arpo_project_tpu_torch.ops import admm, admm_pallas
 
     sets = capture_chunks(engine, B, steps_before=5, seed=1)
+    rows, n_live = ADMM_COSTLY
+    sets.append(_lane(*sets[1], rows, n_live))
+    labels = ["first solve", "after 5 steps",
+              f"after 5 steps, {rows}-row lane, {n_live} live (the census's "
+              "costliest class)"]
     max_abs = 0.0
-    for label, (a, k) in zip(("first solve", "after 5 steps"), sets):
+    for label, (a, k) in zip(labels, sets):
         log(f"admm_chunk vs plain, {label}: {int((~k['done']).sum())} live "
             f"of {a[6].shape[0]} slots, |minv|max={float(a[0].abs().max()):.3e}")
-        err32, _ = compare_kernel(admm_pallas.admm_chunk,
-                                  admm_pallas.admm_chunk_ref, a, k,
-                                  torch.float32, 1e-4, f"fp32 {label}")
+        if label == labels[2]:
+            hold_lane(*sets[1], a, k, f"fp32 {label}", record)
+        else:
+            err32, _ = compare_kernel(
+                admm_pallas.admm_chunk, admm_pallas.admm_chunk_ref, a, k,
+                torch.float32, 1e-4, f"fp32 {label}", record)
+            max_abs = max(max_abs, err32)
         compare_kernel(admm_pallas.admm_chunk, admm_pallas.admm_chunk_ref, a,
-                       k, torch.float64, 1e-10, f"fp64 {label}")
-        max_abs = max(max_abs, err32)
+                       k, torch.float64, 1e-10, f"fp64 {label}", record)
+    timed = {}
+    for label, (a, k) in zip(labels[1:], sets[1:]):
+        live = int((~k["done"]).sum())
+        ms = time_ms(lambda: admm_pallas.admm_chunk(*a, **k))
+        plain_ms = time_ms(lambda: admm_pallas.admm_chunk_ref(*a, **_plain(k)))
+        a64, k64 = _cast(a, k, torch.float64)
+        ms64 = time_ms(lambda: admm_pallas.admm_chunk(*a64, **k64))
+        plain_ms64 = time_ms(
+            lambda: admm_pallas.admm_chunk_ref(*a64, **_plain(k64)))
+        bound_ms, bound_by = admm_chunk_bound(a, k,
+                                              admm_pallas.admm_chunk(*a, **k))
+        log(f"admm_chunk, 25 iterations, {label} ({live} live slots, layout "
+            f"(C, S) {admm_pallas.admm_layout(live, torch.float32)} fp32, "
+            f"{admm_pallas.admm_layout(live, torch.float64)} fp64): fp32 "
+            f"kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); fp64 "
+            f"kernel {ms64:.3f} ms, plain {plain_ms64:.3f} ms (median of 20, "
+            "CUDA events)")
+        timed[label] = (ms, plain_ms, bound_ms, bound_by)
     a, k = sets[1]
-    ms = time_ms(lambda: admm_pallas.admm_chunk(*a, **k))
-    plain_ms = time_ms(lambda: admm_pallas.admm_chunk_ref(*a, **k))
-    a64, k64 = _cast(a, k, torch.float64)
-    ms64 = time_ms(lambda: admm_pallas.admm_chunk(*a64, **k64))
-    plain_ms64 = time_ms(lambda: admm_pallas.admm_chunk_ref(*a64, **k64))
-    bound_ms, bound_by = admm_chunk_bound(a, k,
-                                          admm_pallas.admm_chunk(*a, **k))
-    log(f"admm_chunk, 25 iterations, after-5-steps inputs "
-        f"({int((~k['done']).sum())} live slots): fp32 kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
-        f"fp64 kernel {ms64:.3f} ms, plain {plain_ms64:.3f} ms (median of "
-        f"20, CUDA events)")
+    admm_sweep(a, k)
+    ms, plain_ms, bound_ms, bound_by = timed[labels[1]]
     chunk = dict(name="admm_chunk", route="cuda",
-                 source="mpc_arpo_project_tpu_torch/csrc/admm_chunk.cu",
+                 source="mpc_arpo_project_tpu_torch/csrc/admm_chunk.cuh",
                  replaces="mpc_arpo_project_tpu/ops/admm_pallas.py:260",
                  max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -908,18 +1025,22 @@ def main_path(engine, B, seed):
             return out
         return call
 
-    def chunk_censused(fn):
-        """``eig_chunk`` recording each call's n_iter, live count (kept on
-        the device, read after the run) and CUDA-event span, which also
-        counts in the chunk span of the split."""
+    def chunk_censused(name):
+        """The chunk kernel ``name`` (``eig_chunk`` or ``admm_chunk``)
+        recording each call's rows (the lane width B_l), n_iter, live count
+        (kept on the device, read after the run) and CUDA-event span, which
+        also counts in the chunk span of the split."""
+        fn = getattr(mod, name)
+
         def call(*a, **k):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = fn(*a, **k)
             e1.record()
-            spans["eig_chunk"].append((e0, e1))
-            chunks.append((k["n_iter"], (~k["done"]).sum(), e0, e1))
+            spans[name].append((e0, e1))
+            chunks.append((k["done"].shape[0], k["n_iter"],
+                           (~k["done"]).sum(), e0, e1))
             return out
         return call
 
@@ -927,8 +1048,9 @@ def main_path(engine, B, seed):
     wrapped = {fn: timed(fn, getattr(mod, fn)) for _, fn in timed_fns}
     if mode == "pallas":
         wrapped["ns_fused"] = censused(mod.ns_fused)
+        wrapped["admm_chunk"] = chunk_censused("admm_chunk")
     if mode == "eig":
-        wrapped["eig_chunk"] = chunk_censused(mod.eig_chunk)
+        wrapped["eig_chunk"] = chunk_censused("eig_chunk")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _solver_calls(mode, **wrapped):
@@ -973,7 +1095,8 @@ def main_path(engine, B, seed):
     split.update({label: ms[fn] / T for label, fn in timed_fns})
     split[rest_name] = (wall_ms - sum(ms.values())) / T
     rep_census = refresh_census(census, T, ms.get("masked_safe_refresh"))
-    ch_census = chunk_census(chunks, T, ms.get("eig_chunk"))
+    span = ms.get(path_kernels[0]) if path_kernels else None
+    ch_census = chunk_census(chunks, T, span, by_rows=mode == "pallas")
     return launches, dict(
         solve_mode=mode, dtype=str(engine.dtype)[6:], steps=T, batch=B,
         wall_s=wall, alive_steps=n_alive,
@@ -993,27 +1116,37 @@ def main_path(engine, B, seed):
 _LIVE_BUCKETS = ((1, 32), (33, 128), (129, 512), (513, 1152))
 
 
-def chunk_census(calls, T, span_ms):
-    """Group the 'eig' main path's ``eig_chunk`` calls by live bucket:
-    calls, ms per step and per call, mean live count, the n_iter values
-    seen and the share of the chunk span; logs one line per bucket."""
+def chunk_census(calls, T, span_ms, by_rows=False):
+    """Group a main path's chunk-kernel calls by live bucket (and, with
+    ``by_rows``, also by lane width B_l and live bucket): calls, ms per
+    step and per call, mean live count, the n_iter values seen and the
+    share of the chunk span; logs one line per class."""
+    def bucket(k):
+        return (next((lo, hi) for lo, hi in _LIVE_BUCKETS if k <= hi) if k
+                else (0, 0))
+
     groups = {}
-    for n_iter, live, e0, e1 in calls:
+    for rows, n_iter, live, e0, e1 in calls:
         k = int(live)
-        b = next((lo, hi) for lo, hi in _LIVE_BUCKETS if k <= hi) if k \
-            else (0, 0)
-        g = groups.setdefault(b, [0, 0.0, 0, set()])
-        g[0] += 1
-        g[1] += e0.elapsed_time(e1)
-        g[2] += k
-        g[3].add(n_iter)
+        keys = [("all", bucket(k))]
+        if by_rows:
+            keys.append((rows, bucket(k)))
+        for key in keys:
+            g = groups.setdefault(key, [0, 0.0, 0, set()])
+            g[0] += 1
+            g[1] += e0.elapsed_time(e1)
+            g[2] += k
+            g[3].add(n_iter)
     out = []
-    for (lo, hi), (n, t, k, iters) in sorted(groups.items()):
-        out.append(dict(live=f"{lo}-{hi}", calls_per_step=n / T,
+    order = lambda kv: (kv[0][0] != "all", str(kv[0][0]).zfill(5), kv[0][1])
+    for ((rows, (lo, hi)), (n, t, k, iters)) in sorted(groups.items(),
+                                                        key=order):
+        out.append(dict(rows=rows, live=f"{lo}-{hi}", calls_per_step=n / T,
                         ms_per_step=t / T, ms_per_call=t / n,
                         mean_live=k / n, n_iter=sorted(iters),
                         share_of_chunk_span=t / span_ms if span_ms else None))
-        log(f"  chunk census: live {lo}-{hi}: {n / T:.2f} calls/step, "
+        lane = "" if rows == "all" else f"B_l={rows} "
+        log(f"  chunk census: {lane}live {lo}-{hi}: {n / T:.2f} calls/step, "
             f"{t / T:.3f} ms/step, {t / n:.3f} ms/call, mean live "
             f"{k / n:.1f}, n_iter {sorted(iters)}, "
             + (f"{100 * t / span_ms:.1f}% of the chunk span"
@@ -1116,7 +1249,9 @@ def main() -> int:
 
     # 2. build: one nvcc per library, all started together
     t0 = time.perf_counter()
-    libs = {"eig_chunk": admm_eig._lib, "admm_chunk": admm_pallas._chunk_lib,
+    libs = {"eig_chunk": admm_eig._lib,
+            **{n: partial(admm_pallas._chunk_lib, n)
+               for n in admm_pallas.CHUNK_LIBS},
             "ns_inverse": admm_pallas._ns_lib,
             "kernel_probe": kernel_probe._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -1146,8 +1281,8 @@ def main() -> int:
     entries += check_pallas_kernels(pal_engine, B, record)
     if dump:
         torch.save({"calls": record.calls}, dump)
-        log(f"saved {len(record.calls)} eig_chunk and Newton–Schulz calls to "
-            f"{dump}")
+        log(f"saved {len(record.calls)} eig_chunk, admm_chunk and "
+            f"Newton–Schulz calls to {dump}")
         del record  # it holds the inputs on the card too
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 

@@ -1241,7 +1241,7 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
                 cy.minv, coef_l, qbar_l, lbar_l, ubar_l, rho, cy.x, cy.y,
                 cy.z, ns_weights(rho_scale), prob.A0bar, prob.Pbar,
                 prob.gsel, prob.scat, prob.rsel, prob.gscat, stack7,
-                prob.Einv, prob.Dinv, done=done,
+                prob.Einv, prob.Dinv, done=done, n_live=n_live,
                 n_iter=settings.check_every, sigma=sigma,
                 alpha=float(settings.alpha),
                 eps_pinf=float(settings.eps_pinf),

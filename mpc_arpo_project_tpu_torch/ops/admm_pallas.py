@@ -194,12 +194,67 @@ def _dispatch(name, x):
     return True
 
 
+# layouts (cluster size C, slots per block S) of the CUDA kernel: a cluster
+# of C blocks per slot, or S slots per block. Clusters of 4 were never the
+# fastest by more than the sweep's noise (PERF.md section 6) and cost a
+# build; in fp64 the Minv slice of a two-block cluster (256 KiB) does not
+# fit a block's shared memory, nor do the vectors of eight slots (~400 KB),
+# and four slots' registers would spill
+LAYOUTS = {
+    torch.float32: ((1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (8, 1)),
+    torch.float64: ((1, 1), (1, 2), (8, 1)),
+}
+# groups of each layout an NVIDIA H100 80GB HBM3 holds at once at the
+# flagship's nz=256, m=512, gw=64 (cudaOccupancyMaxActiveClusters; blocks
+# for C = 1): one wave. The kernel's wrapper asks the card itself
+# (``_waves``); chip_smoke prints both.
+WAVES = {
+    torch.float32: {(1, 1): 528, (1, 2): 264, (1, 4): 264, (1, 8): 132,
+                    (2, 1): 66, (8, 1): 30},
+    torch.float64: {(1, 1): 264, (1, 2): 264, (8, 1): 15},
+}
+
+
+# a cluster layout stays ahead of the slot groups while its clusters fill
+# at most this many waves (chip_smoke's sweep, PERF.md section 6: fp32
+# clusters of 2 at 264 live slots, four waves; fp64 clusters of 8 at 66,
+# five)
+CLUSTER_WAVES = 5
+
+
+def admm_layout(n_live: int, dtype, waves=None):
+    """Layout (C, S) of the CUDA kernel for a chunk with ``n_live`` live
+    slots: the largest cluster size C > 1 whose clusters (one a slot) fit
+    one wave of the card; else the smallest whose clusters fit
+    ``CLUSTER_WAVES`` waves; else the smallest slots-per-block S whose
+    groups fit one wave; else the largest S that fits the card at all.
+    ``waves`` maps each layout of ``LAYOUTS[dtype]`` to the groups one wave
+    holds, 0 for one that does not fit (default ``WAVES[dtype]``). Pure:
+    the live count comes from a host read the solver makes anyway."""
+    waves = WAVES[dtype] if waves is None else waves
+    lay = LAYOUTS[dtype]
+    clusters = sorted(c for c, _ in lay if c > 1)
+    for C in reversed(clusters):
+        if n_live <= waves[(C, 1)]:
+            return (C, 1)
+    for C in clusters:
+        if n_live <= CLUSTER_WAVES * waves[(C, 1)]:
+            return (C, 1)
+    groups = sorted(S for c, S in lay if c == 1 and waves[(1, S)] > 0)
+    for S in groups:
+        if -(-n_live // S) <= waves[(1, S)]:
+            return (1, S)
+    if not groups:
+        raise ValueError(f"admm_chunk: no layout fits the card ({waves})")
+    return (1, groups[-1])
+
+
 def admm_chunk(
     minv, coef, qbar, lbar, ubar, rho, x, y, z, w7,
     a0, pbar, gsel, scat, rsel, gscat, stack7, einv, dinv, *,
     n_iter: int, sigma: float, alpha: float, eps_pinf: float,
     eps_dinf: float, pinf_margin: float, bt: int = 8, ir_steps: int = 1,
-    two_limb: bool = True, done=None,
+    two_limb: bool = True, done=None, n_live=None, layout=None,
 ):
     """Run ``n_iter`` fused ADMM iterations and the termination diagnostics.
 
@@ -210,7 +265,13 @@ def admm_chunk(
     (3gw,nz); stack7 (nz,7nz); einv (m,); dinv (nz,); done (B,) bool.
     Returns (x, y, z, stats) with stats (B,8) = rp, rp_rel, rd, rd_rel,
     pinf, dinf, ||dy||_inf, ||dx||_inf. ``bt`` and ``two_limb`` are
-    accepted for the JAX signature and have no effect."""
+    accepted for the JAX signature and have no effect.
+
+    ``n_live`` (the count of not-done rows, None: B) sizes the kernel's
+    grid, which covers the live rows only (a live row beyond it reads NaN),
+    and picks its layout, ``admm_layout(n_live, dtype)``; ``layout`` forces
+    one of ``LAYOUTS[dtype]``. Neither moves a bit of the result. The twin
+    ignores both."""
     args = (minv, coef, qbar, lbar, ubar, rho, x, y, z, w7, a0, pbar, gsel,
             scat, rsel, gscat, stack7, einv, dinv)
     kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha, eps_pinf=eps_pinf,
@@ -218,7 +279,7 @@ def admm_chunk(
               done=done)
     if not _dispatch("admm_chunk", x):
         return admm_chunk_ref(*args, **kw)
-    return _admm_chunk_cuda(*args, **kw)
+    return _admm_chunk_cuda(*args, n_live=n_live, layout=layout, **kw)
 
 
 admm_chunk.launches = 0
@@ -306,15 +367,57 @@ def ns_tile(rows: int, n: int) -> int:
     return 128 if rows * (-(-n // 128)) * (-(-n // 256)) >= _SMS else 64
 
 
-def _chunk_lib():
-    lib = _build.load_library("admm_chunk", ("admm_chunk.cu",))
+# the chunk kernel's libraries, each with its own layouts (one nvcc each,
+# so chip_smoke builds them side by side): name -> (source, C entry)
+CHUNK_LIBS = {
+    "admm_chunk": ("admm_chunk.cu", "admm_chunk_f32"),      # fp32, C = 1
+    "admm_cluster": ("admm_cluster.cu", "admm_cluster_f32"),  # fp32, C > 1
+    "admm_chunk_f64": ("admm_chunk_f64.cu", "admm_chunk_f64"),
+}
+
+
+def _chunk_lib(name):
+    src, entry = CHUNK_LIBS[name]
+    lib = _build.load_library(name, (src,))
     if not getattr(lib, "_typed", False):
-        for suffix in _C_TYPES.values():
-            fn = getattr(lib, f"admm_chunk_{suffix}")
-            fn.argtypes = [_P] * 24 + [_I] * 6 + [_D] * 5 + [_P]
-            fn.restype = _I
+        fn = getattr(lib, entry)
+        fn.argtypes = [_P] * 25 + [_I] * 9 + [_D] * 5 + [_P]
+        fn.restype = _I
+        cap = getattr(lib, f"{entry}_capacity")
+        cap.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+        cap.restype = _I
         lib._typed = True
     return lib
+
+
+def _chunk_fn(dt, C, capacity=False):
+    """The C entry of the chunk kernel's library for type ``dt`` and
+    cluster size C."""
+    name = ("admm_chunk_f64" if dt == torch.float64
+            else "admm_cluster" if C > 1 else "admm_chunk")
+    entry = CHUNK_LIBS[name][1]
+    return getattr(_chunk_lib(name),
+                   f"{entry}_capacity" if capacity else entry)
+
+
+_wave_cache: dict = {}
+
+
+def _waves(dt, nz, m, gw, device):
+    """The groups of each layout one wave of ``device`` holds (0 where the
+    layout's shared memory does not fit these shapes), asked of the card
+    once per (type, shape, device)."""
+    key = (dt, nz, m, gw, device)
+    if key not in _wave_cache:
+        out = {}
+        with torch.cuda.device(device):
+            for C, S in LAYOUTS[dt]:
+                n = _I(0)
+                err = _chunk_fn(dt, C, capacity=True)(C, S, nz, m, gw,
+                                                      ctypes.byref(n))
+                out[(C, S)] = n.value if err == 0 else 0
+        _wave_cache[key] = out
+    return _wave_cache[key]
 
 
 def _ns_lib():
@@ -354,7 +457,7 @@ def _dtype_of(name, t):
 def _admm_chunk_cuda(minv, coef, qbar, lbar, ubar, rho, x, y, z, w7, a0,
                      pbar, gsel, scat, rsel, gscat, stack7, einv, dinv, *,
                      n_iter, sigma, alpha, eps_pinf, eps_dinf, pinf_margin,
-                     ir_steps, done):
+                     ir_steps, done, n_live, layout):
     dt = _dtype_of("admm_chunk", x)
     B, nz = x.shape
     m = y.shape[1]
@@ -373,17 +476,30 @@ def _admm_chunk_cuda(minv, coef, qbar, lbar, ubar, rho, x, y, z, w7, a0,
         dinv=(dinv, (nz,), dt), done=(done, (B,), torch.bool)))
     if gw3 % 3:
         raise ValueError(f"admm_chunk: gsel width {gw3} is not 3*gw")
-    fn = getattr(_chunk_lib(), f"admm_chunk_{_C_TYPES[dt]}")
+    n_grid = B if n_live is None else int(n_live)
+    if not 0 <= n_grid <= B:
+        raise ValueError(f"admm_chunk: n_live={n_live} for {B} rows")
+    if layout is None:
+        layout = admm_layout(n_grid, dt,
+                             _waves(dt, nz, m, gw3 // 3, x.device))
+    elif tuple(layout) not in LAYOUTS[dt]:
+        raise ValueError(f"admm_chunk: layout {layout} is not one of "
+                         f"{LAYOUTS[dt]} ({dt})")
+    C, S = layout
+    fn = _chunk_fn(dt, C)
     xo, yo, zo = torch.empty_like(x), torch.empty_like(y), torch.empty_like(z)
     stats = torch.empty((B, 8), dtype=dt, device=x.device)
-    ptrs = [t.data_ptr() for t in (
+    # the live rows first, in row order (no host read)
+    slots = torch.argsort(done.to(torch.int8), stable=True)[:n_grid].to(
+        torch.int32)
+    ptrs = [t.data_ptr() if t.numel() else 0 for t in (
         minv, coef, qbar, lbar, ubar, rho, x, y, z, w7, done, a0, pbar, gsel,
-        scat, rsel, gscat, stack7, einv, dinv, xo, yo, zo, stats)]
+        scat, rsel, gscat, stack7, einv, dinv, xo, yo, zo, stats, slots)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, B, nz, m, gw3 // 3, n_iter, ir_steps, float(sigma),
-                 float(alpha), float(eps_pinf), float(eps_dinf),
-                 float(max(eps_pinf, pinf_margin)), stream)
+        err = fn(*ptrs, B, n_grid, C, S, nz, m, gw3 // 3, n_iter, ir_steps,
+                 float(sigma), float(alpha), float(eps_pinf),
+                 float(eps_dinf), float(max(eps_pinf, pinf_margin)), stream)
     if err != 0:
         raise RuntimeError(f"admm_chunk: CUDA kernel launch failed "
                            f"(cudaError {err})")

@@ -4,21 +4,23 @@ results bit for bit.
     python3 chip_smoke.py --ns-dump FILE
     python3 mpc_arpo_project_tpu_torch/tools/ns_replay.py --tree DIR FILE
 
-The first command saves every ``eig_chunk``, ``ns_fused`` and
-``newton_schulz_inverse`` kernel call of chip_smoke's comparisons: its
+The first command saves every ``eig_chunk``, ``admm_chunk``, ``ns_fused``
+and ``newton_schulz_inverse`` kernel call of chip_smoke's comparisons: its
 inputs (fp32, cast to the call's type as chip_smoke casts them), keywords,
-and what the kernel returned (``eig_chunk``: the sha256 of x, y, z and the
-stats; Newton–Schulz: the sha256 of X and the residuals; NaNs made one
+and what the kernel returned (the chunk kernels: the sha256 of x, y, z and
+the stats; Newton–Schulz: the sha256 of X and the residuals; NaNs made one
 NaN). The second imports ``mpc_arpo_project_tpu_torch`` from ``DIR``
 (another checkout, e.g. an older commit), runs each call through that
 tree's kernel on the card, and reports, per call, whether the results are
 identical. Keywords the other tree's entry does not take (``n_need``,
-``n_live``, ``group``) are dropped. Where the tree's ``eig_chunk`` takes
-``group``, each call also runs with every slots-per-block S the call's
-``bt`` and type allow. Each run is timed on that tree (median of 5
-CUDA-event runs after one warm-up), so two trees' kernels can be timed on
-the same inputs in one session. Exits 1 if any run differs, 2 without a
-card. Needs torch and a CUDA device, nothing else.
+``n_live``, ``group``, ``layout``) are dropped. Where the tree's
+``eig_chunk`` takes ``group``, each call also runs with every
+slots-per-block S the call's ``bt`` and type allow; where its
+``admm_chunk`` takes ``layout``, with every (cluster size C, slots per
+block S) of ``admm_pallas.LAYOUTS``. Each run is timed on that tree
+(median of 5 CUDA-event runs after one warm-up), so two trees' kernels can
+be timed on the same inputs in one run. Exits 1 if any run differs, 2
+without a card. Needs torch and a CUDA device, nothing else.
 """
 
 from __future__ import annotations
@@ -62,15 +64,20 @@ def _time_ms(fn, n=5):
     return statistics.median(times)
 
 
-def _eig_runs(admm_eig, c, dt):
-    """(label, extra keywords) of the runs of one saved ``eig_chunk`` call:
-    the call's own, then each slots-per-block S the tree can force."""
-    params = inspect.signature(admm_eig.eig_chunk).parameters
+def _chunk_runs(entry, mod, c, dt):
+    """(label, extra keywords) of the runs of one saved chunk-kernel call:
+    the call's own, then each layout the tree can force (``eig_chunk``:
+    slots per block S; ``admm_chunk``: cluster size C and slots per block
+    S)."""
+    params = inspect.signature(entry).parameters
     runs = [("policy", {})]
     if "group" in params:
-        cap = admm_eig.GROUP_CAP[dt]
+        cap = mod.GROUP_CAP[dt]
         runs += [(f"S={S}", {"group": S}) for S in (1, 2, 4, 8)
                  if S <= cap and c["kw"]["bt"] % S == 0]
+    if "layout" in params:
+        runs += [(f"C={C} S={S}", {"layout": (C, S)})
+                 for C, S in mod.LAYOUTS[dt]]
     return runs, params
 
 
@@ -108,19 +115,21 @@ def main(argv=None) -> int:
     for c in calls:
         dt = getattr(torch, c["dtype"])
         a = [to_dev(t, dt) for t in c["args"]]
-        if c["entry"] == "eig_chunk":
-            runs, params = _eig_runs(admm_eig, c, dt)
+        if c["entry"] in ("eig_chunk", "admm_chunk"):
+            mod = admm_eig if c["entry"] == "eig_chunk" else admm_pallas
+            entry = getattr(mod, c["entry"])
+            runs, params = _chunk_runs(entry, mod, c, dt)
             kw = {k: to_dev(v, dt) for k, v in c["kw"].items()
                   if k in params}
             for label, extra in runs:
                 kwr = dict(kw, **extra)
-                outs = admm_eig.eig_chunk(*a, **kwr)
+                outs = entry(*a, **kwr)
                 torch.cuda.synchronize()
                 same = [digest(o) == d for o, d in zip(outs, c["digests"])]
                 bad += not all(same)
                 runs_total += 1
                 del outs
-                ms = _time_ms(lambda: admm_eig.eig_chunk(*a, **kwr))
+                ms = _time_ms(lambda: entry(*a, **kwr))
                 print(f"{c['label']} [{label}]: " + ", ".join(
                     f"{n} {'identical' if ok else 'DIFFERS'}"
                     for n, ok in zip(("x", "y", "z", "stats"), same))

@@ -232,6 +232,80 @@ def test_ns_tile_choice(rows, n, tile):
     assert tpal.ns_tile(rows, n) == tile
 
 
+_DTYPES = (torch.float32, torch.float64)
+_LIVE = (1, 11, 33, 66, 67, 264, 528, 529, 1024, 1152)
+# (live slots, type, layout): the mean live counts of the 'pallas' census
+# classes (9, 44, 97, 185, 394, 773) and the live counts of chip_smoke's
+# layout sweep, with the layout the policy takes there: the sweep's
+# fastest, or within 5% of it (PERF.md section 6)
+ADMM_CENSUS = [
+    (9, torch.float32, (8, 1)), (44, torch.float32, (2, 1)),
+    (97, torch.float32, (2, 1)), (128, torch.float32, (2, 1)),
+    (185, torch.float32, (2, 1)), (264, torch.float32, (2, 1)),
+    (394, torch.float32, (1, 1)), (528, torch.float32, (1, 1)),
+    (773, torch.float32, (1, 4)), (1024, torch.float32, (1, 4)),
+    (9, torch.float64, (8, 1)), (33, torch.float64, (8, 1)),
+    (66, torch.float64, (8, 1)), (128, torch.float64, (1, 1)),
+    (264, torch.float64, (1, 1)), (528, torch.float64, (1, 2)),
+    (1024, torch.float64, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("n_live", _LIVE)
+def test_admm_layout_within_its_caps(n_live, dtype):
+    """The policy picks a layout the kernel takes in the type: a cluster
+    of C blocks for one slot, or S slots a block, never both."""
+    C, S = tpal.admm_layout(n_live, dtype)
+    assert (C, S) in tpal.LAYOUTS[dtype]
+    assert C == 1 or S == 1
+    assert set(tpal.WAVES[dtype]) == set(tpal.LAYOUTS[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("n_live", _LIVE)
+def test_admm_layout_fits_one_wave(n_live, dtype):
+    """The largest cluster whose clusters fit one wave of the card; else
+    the smallest whose clusters fit ``CLUSTER_WAVES`` waves; else the
+    smallest group whose groups fit one wave; else the largest group. Also
+    with the wave sizes a caller passes (a card that holds fewer)."""
+    for waves in (tpal.WAVES[dtype],
+                  {k: max(1, v // 2) for k, v in tpal.WAVES[dtype].items()}):
+        C, S = tpal.admm_layout(n_live, dtype, waves)
+        clusters = [c for c, _ in waves if c > 1]
+        fits = lambda c, s, n=1: (n_live if c > 1 else -(-n_live // s)) <= (
+            n * waves[(c, s)])
+        one = [c for c in clusters if fits(c, 1)]
+        some = [c for c in clusters if fits(c, 1, tpal.CLUSTER_WAVES)]
+        if one:
+            assert (C, S) == (max(one), 1)
+        elif some:
+            assert (C, S) == (min(some), 1)
+        else:
+            groups = [s for c, s in waves if c == 1]
+            fit = [s for s in groups if fits(1, s)]
+            assert (C, S) == (1, min(fit) if fit else max(groups))
+
+
+@pytest.mark.parametrize("n_live, dtype, layout", ADMM_CENSUS)
+def test_admm_layout_follows_the_census(n_live, dtype, layout):
+    """At the live counts of the 'pallas' main path's chunk census and of
+    chip_smoke's sweep (PERF.md sections 5 and 6), the policy picks the
+    layout the sweep found fastest, or one within its stated margin."""
+    assert tpal.admm_layout(n_live, dtype) == layout
+
+
+def test_admm_chunk_twin_ignores_n_live_and_layout(chunk):
+    """On the CPU ``admm_chunk`` runs the twin, which takes ``n_live`` and
+    ``layout`` and moves no bit for them (not even for values the kernel
+    refuses)."""
+    a, k, ref, _ = chunk
+    for extra in (dict(n_live=6), dict(n_live=1, layout=(8, 1)),
+                  dict(layout=(3, 3))):
+        for o, r in zip(tpal.admm_chunk(*a, **k, **extra), ref):
+            assert torch.equal(o, r)
+
+
 @pytest.mark.parametrize("n_need", [None, "count"])
 def test_masked_safe_refresh_recovers_and_passes_through(setup, inputs,
                                                          n_need):

@@ -502,3 +502,72 @@ def test_cuda_wrapper_rejects_a_group_the_kernel_does_not_take(gpu, chunks):
                                **_on_card(a, k, dtype, gpu)[1], group=S)
     assert k["bt"] % 8
     assert admm_eig.eig_chunk.launches == n0
+
+
+def _pallas_case(pallas, case):
+    """The fixture's chunk (B=8, 6 live rows) with only its first
+    ``case`` live rows live, or (``case`` = 'wide') three copies of its rows
+    (B=24, 18 live), so that groups of 8 slots fill."""
+    a, k = pallas["chunk"]
+    if case == "wide":
+        a = tuple(v.repeat(3, *([1] * (v.dim() - 1))).contiguous()
+                  if i < 10 else v for i, v in enumerate(a))
+        return a, dict(k, done=k["done"].repeat(3))
+    done = k["done"].clone()
+    done[torch.nonzero(~done).squeeze(1)[case:]] = True
+    return a, dict(k, done=done)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [1, 3, 6, "wide"])
+def test_cuda_admm_layouts_are_bit_identical(gpu, pallas, dtype, case):
+    """Every layout (cluster size C, slots per block S) the kernel takes in
+    the type gives the x, y, z and stats of C = S = 1 bit for bit, and so
+    does the policy's layout for the live count; done rows pass through
+    with zero stats in every layout, and each copy of a row in the widened
+    case equals the row."""
+    a, k = _pallas_case(pallas, case)
+    ag, kg = _on_card(a, k, dtype, gpu)
+    n_live = int((~kg["done"]).sum())
+    outs = {}
+    for lay in admm_pallas.LAYOUTS[dtype]:
+        n0 = admm_pallas.admm_chunk.launches
+        outs[lay] = admm_pallas.admm_chunk(*ag, **kg, n_live=n_live,
+                                           layout=lay)
+        torch.cuda.synchronize()
+        assert admm_pallas.admm_chunk.launches == n0 + 1
+    outs["policy"] = admm_pallas.admm_chunk(*ag, **kg, n_live=n_live)
+    outs["n_live=None"] = admm_pallas.admm_chunk(*ag, **kg)
+    done = kg["done"]
+    for lay, out in outs.items():
+        for o, r in zip(out, outs[(1, 1)]):
+            assert _same(o, r), lay
+        for o, v in zip(out[:3], ag[6:9]):
+            assert torch.equal(o[done], v[done]), lay
+        assert (out[3][done] == 0).all(), lay
+        assert all(bool(torch.isfinite(o[~done]).all()) for o in out), lay
+    if case == "wide":
+        for o in outs[(1, 1)]:
+            assert _same(o[:8], o[8:16]) and _same(o[:8], o[16:])
+
+
+def test_cuda_admm_chunk_refuses_a_layout_it_does_not_take(gpu, pallas):
+    """A layout outside ``LAYOUTS[dtype]`` (a two-block cluster in fp64,
+    which would not fit shared memory; clusters of slot groups; sizes the
+    kernel has no instance for) or an ``n_live`` beyond the rows raises,
+    and no launch is counted."""
+    a, k = pallas["chunk"]
+    n0 = admm_pallas.admm_chunk.launches
+    for dtype, lay in ((torch.float64, (2, 1)), (torch.float64, (1, 4)),
+                       (torch.float32, (2, 2)), (torch.float32, (4, 1)),
+                       (torch.float32, (16, 1)),
+                       (torch.float32, (1, 16)), (torch.float32, (3, 1))):
+        with pytest.raises(ValueError, match="layout"):
+            admm_pallas.admm_chunk(*_on_card(a, k, dtype, gpu)[0],
+                                   **_on_card(a, k, dtype, gpu)[1],
+                                   layout=lay)
+    with pytest.raises(ValueError, match="n_live"):
+        admm_pallas.admm_chunk(*_on_card(a, k, torch.float32, gpu)[0],
+                               **_on_card(a, k, torch.float32, gpu)[1],
+                               n_live=9)
+    assert admm_pallas.admm_chunk.launches == n0
