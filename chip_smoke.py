@@ -7,9 +7,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 
 1. device: the card's name and power limit, torch and CUDA versions; fp32
    matmuls are pinned to full precision (no TF32);
-2. build: compiles the six CUDA libraries from ``csrc/`` with nvcc, all at
-   once (one nvcc per source; the 'pallas' chunk kernel is three, by type
-   and layout), and logs ptxas' register and spill lines;
+2. build: compiles the seven CUDA libraries from ``csrc/`` with nvcc, all
+   at once (one nvcc per source; the 'pallas' chunk kernel is three, by
+   type and layout), and logs ptxas' register and spill lines;
 3. kernels against plain, at flagship shapes (Nx=50: nz=256, m=512, B=1024)
    on real inputs of the flagship engine (the first solve, and the solve
    after five control steps), in fp32 and fp64, each timed by CUDA events
@@ -34,11 +34,16 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    each of its six kernels against its twin on unit-gain inputs (launch
    counted), then timed as the probe times it on the same inputs and on
    the original's scales, with its bound and useful TF/s;
-5. main path 1: the flagship closed loop (radial, noisy, offset-free,
+5. the continuous plant's tick kernel ``rk4_tick`` (500 RK4 substeps,
+   B=1024, the radialC plant) against its twin on states spread over the
+   approach with scenarios placed to dock and to terminate within the
+   tick, both input models, telemetry on and off, fp32 and fp64; timed
+   beside the twin, with its bound and the latency of one warp's chain;
+6. main path 1: the flagship closed loop (radial, noisy, offset-free,
    debris; 'eig' solve, UKF) for 20 control steps at B=1024, fp32;
-6. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
+7. main path 2: the same closed loop in ``solve_mode='pallas'`` (the
    repository's bench configuration with ``BENCH_SOLVE_MODE=pallas``);
-7. main path 3: the same closed loop in the default ``solve_mode='chol'``
+8. main path 3: the same closed loop in the default ``solve_mode='chol'``
    (the fp64 oracle mode) in fp64; each main path reports every kernel's
    launch count (set to 0 just before the path, read just after),
    alive-solves/s, the status mix, the mean ADMM iterations per step, a
@@ -46,12 +51,21 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    also a census of its ``eig_chunk`` calls by live count, 'pallas' a
    census of its ``admm_chunk`` calls by live count and lane width and of
    its ``ns_fused`` calls by (rows, warm/cold, needy count);
-8. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+9. main path 4: the continuous-time closed loop of the radialC scenario
+   (nonlinear two-body plant, RK4 at 1 ms: 500 substeps a 0.5 s tick;
+   fp32 'eig', UKF, ``max_iter=1000``) for 139 ticks at B=1024: the
+   launches of every kernel (``rk4_tick`` once a tick), ms per tick split
+   into the solve span, the ``rk4_tick`` span and the rest, scenario
+   substeps/s, the status and controller mix of alive ticks, the docked
+   share, the termination substep's quartiles and the peak memory;
+10. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination and ``done_iters``, and trajectories within 1e-6; for
    'eig', 'pallas' and 'chol', and for 'chol' with ``estimator='kf'`` and
-   with ``synthesis='torch'``;
-9. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
+   with ``synthesis='torch'``; and 5 ticks of the continuous loop in fp64
+   at B=8 ('eig' and 'chol'), which must also give the same termination
+   substeps and success;
+11. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -69,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import sys
 import time
@@ -76,6 +91,10 @@ from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
+
+# the tests' helpers (the inputs of the tick kernel's check); they import
+# nothing of JAX
+TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 # H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
 # beside every time): fp32 and fp64 on the CUDA cores, HBM3 bandwidth
@@ -88,15 +107,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
-    """The flagship scenario and the production solver profile (the
-    repository's bench configuration at its defaults, with
-    ``BENCH_SOLVE_MODE=solve_mode``); ``engine_kw`` (``estimator``,
-    ``synthesis``) goes to ``build_engine``."""
-    from mpc_arpo_project_tpu_torch import (
-        Debris, FailsafeParams, MPCParams, Noise, SimConditions)
-    from mpc_arpo_project_tpu_torch.ops import admm
-    from mpc_arpo_project_tpu_torch.rollout import discrete
+def _parts(Nx):
+    """MPC weights (horizon ``Nx``), failsafe gains and the debris box of
+    the flagship family (``bench.py:50-128``)."""
+    from mpc_arpo_project_tpu_torch import Debris, FailsafeParams, MPCParams
 
     v_ecr = 50000.0 * np.ones(5)
     v_ecr[-2] *= -1
@@ -104,26 +118,63 @@ def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
     mpc = MPCParams(
         8e2 * np.diag([0.2 ** 2, 10 ** 2, 3.8 ** 2, 900.0]),
         1000 ** 2 * np.eye(2), 5 ** 2 * np.eye(5), v_ecr,
-        {"Nx": 50, "Nc": 5, "Nb": 5}, (0.2, 0.2))
+        {"Nx": Nx, "Nc": 5, "Nb": 5}, (0.2, 0.2))
     fail = FailsafeParams(
         0.005 * np.diag([0.0001, 1, 100000.0, 1.0, 0.01]), 100 * np.eye(2),
         np.eye(1, 4), np.zeros((2, 2)))
-    debris = Debris((40.0, 0.0), 5.0, 20.0)
-    sim = SimConditions(
-        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
-        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
-        Noise((0.75, 0.75), 50), False, T_final=T_final)
-    settings = admm.ADMMSettings(
-        max_iter=4000, solve_mode=solve_mode, check_every=25,
+    return mpc, fail, Debris((40.0, 0.0), 5.0, 20.0)
+
+
+def _settings(solve_mode, max_iter=4000):
+    """The production solver profile (``bench.py``'s settings at its
+    defaults) in ``solve_mode``."""
+    from mpc_arpo_project_tpu_torch.ops import admm
+
+    return admm.ADMMSettings(
+        max_iter=max_iter, solve_mode=solve_mode, check_every=25,
         stall_exit_chunks=12, stall_tighten_chunks=24, adaptive_rho=True,
         ns_refresh_drift=0.02, ir_steps=1, pallas_tile=32,
         eig_refresh_cap_div=32, eig_deb_equil_smax=32.0, eig_warm_iters=3,
         eig_cold_iters=30, eig_compact_chunks=(2, 4, 8, 16, 24))
-    return discrete.build_engine(sim, mpc, fail, debris, settings=settings,
-                                 dtype=dtype, device=device, **engine_kw)
 
 
-@contextlib.contextmanager
+def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
+    """The flagship scenario and the production solver profile (the
+    repository's bench configuration at its defaults, with
+    ``BENCH_SOLVE_MODE=solve_mode``); ``engine_kw`` (``estimator``,
+    ``synthesis``) goes to ``build_engine``."""
+    from mpc_arpo_project_tpu_torch import Noise, SimConditions
+    from mpc_arpo_project_tpu_torch.rollout import discrete
+
+    mpc, fail, debris = _parts(50)
+    sim = SimConditions(
+        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
+        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
+        Noise((0.75, 0.75), 50), False, T_final=T_final)
+    return discrete.build_engine(sim, mpc, fail, debris,
+                                 settings=_settings(solve_mode), dtype=dtype,
+                                 device=device, **engine_kw)
+
+
+def radial_c(T_final, device, dtype, solve_mode="eig"):
+    """The continuous radialC scenario (``examples/common.py:18-60``'s
+    radial configuration with ``noisy=True, T_cont=1e-3``: Nx=40, noise
+    sigma 0.0012 held 50 ticks, Brownian convention, UKF) with
+    ``tools/continuous_fullscale.py``'s ``max_iter=1000`` and the
+    flagship's other settings in ``solve_mode``."""
+    from mpc_arpo_project_tpu_torch import Noise, SimConditions
+    from mpc_arpo_project_tpu_torch.rollout import continuous
+
+    mpc, fail, debris = _parts(40)
+    sim = SimConditions(
+        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
+        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
+        Noise((0.0012, 0.0012), 50), False, T_cont=1e-3, T_final=T_final)
+    return continuous.build_engine(
+        sim, mpc, fail, debris, settings=_settings(solve_mode, max_iter=1000),
+        dtype=dtype, device=device)
+
+
 def _solver_calls(mode, **fns):
     """Make the solver (``ops.admm``) call ``fns`` in place of the functions
     of the same names in the module it looks them up in (``admm_eig`` or
@@ -134,7 +185,13 @@ def _solver_calls(mode, **fns):
     itself."""
     from mpc_arpo_project_tpu_torch.ops import admm
 
-    mod = admm if mode == "chol" else _solver_module(mode)
+    return _patched(admm if mode == "chol" else _solver_module(mode), **fns)
+
+
+@contextlib.contextmanager
+def _patched(mod, **fns):
+    """Module ``mod`` holds ``fns`` in place of its functions of the same
+    names for the duration of the block (see ``_solver_calls``)."""
     saved = {n: getattr(mod, n) for n in fns}
     for n, f in fns.items():
         f.__dict__ = saved[n].__dict__
@@ -964,14 +1021,33 @@ def check_probe(B=1024, bt=32, n_it=25):
                 bound_by=max(by, key=by.get), library_ms=None, **total)
 
 
+def _counters():
+    """Every kernel entry's launch counter, by name."""
+    from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas, rk4_tick
+    from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
+
+    return dict(eig_chunk=admm_eig.eig_chunk,
+                admm_chunk=admm_pallas.admm_chunk,
+                ns_fused=admm_pallas.ns_fused,
+                ns_inverse=admm_pallas.newton_schulz_inverse,
+                rk4_tick=rk4_tick.rk4_tick,
+                **{f"probe {n}": v.entry for n, v in kp.variants().items()})
+
+
+def _read_counters(counters):
+    launches = {n: fn.launches for n, fn in counters.items()}
+    launches["kernel_probe"] = sum(launches.pop(n) for n in list(launches)
+                                   if n.startswith("probe "))
+    return launches
+
+
 def main_path(engine, B, seed):
     """One flagship closed loop on the card, in the engine's solve mode:
     every kernel count is set to 0 just before and read just after; returns
     the counts and the numbers to report."""
     import torch
-    from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
+    from mpc_arpo_project_tpu_torch.ops import admm
     from mpc_arpo_project_tpu_torch.rollout import discrete
-    from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
     mode = engine.settings.solve_mode
     # (span label, function timed by CUDA events) for the per-step split
@@ -989,12 +1065,7 @@ def main_path(engine, B, seed):
                      ("triangular_solves", "_chol_solve"))
         path_kernels, rest_name = (), "matvecs_certificates_and_glue"
     mod = admm if mode == "chol" else _solver_module(mode)
-    counters = dict(eig_chunk=admm_eig.eig_chunk,
-                    admm_chunk=admm_pallas.admm_chunk,
-                    ns_fused=admm_pallas.ns_fused,
-                    ns_inverse=admm_pallas.newton_schulz_inverse,
-                    **{f"probe {n}": v.entry
-                       for n, v in kp.variants().items()})
+    counters = _counters()
     gen = torch.Generator(device=engine.device).manual_seed(seed)
     noise = discrete.make_noise_sequence(engine, gen, B)
     spans = {fn: [] for _, fn in timed_fns}
@@ -1062,9 +1133,7 @@ def main_path(engine, B, seed):
             progress=lambda d, t, c: log(f"  [{mode}] step {d}/{t}"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in counters.items()}
-    launches["kernel_probe"] = sum(launches.pop(n) for n in list(launches)
-                                   if n.startswith("probe "))
+        launches = _read_counters(counters)
     ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in spans.items()}
 
     T = engine.nsim
@@ -1218,6 +1287,287 @@ def small_agreement(seed, solve_mode, **engine_kw):
         f"termination and done_iters equal; max |x_true diff| = {dx:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the continuous closed loop (radialC) and its tick kernel
+# ---------------------------------------------------------------------------
+
+# operations of one substep of ``csrc/rk4_tick.cu`` (a power, a division,
+# an arctangent or a square root counts as one): an alive scenario's RK4
+# step (4 derivative evaluations of 20, 24 for the stage states, 28 for
+# the combination), the held draw (2) and the checks (18); a dead one still
+# makes the termination check (6)
+RK4_OPS_ALIVE = 152
+RK4_OPS_DEAD = 6
+
+# the continuous main path's length: 139 ticks of 500 substeps (the
+# scenarios of the radialC run end near 64 s)
+CONT_T_FINAL = 70.0
+
+
+def _tick_states(out):
+    """x_end, x_after_first and (with telemetry) every substep's state, one
+    row per scenario, in fp64."""
+    import torch
+
+    parts = [out[0], out[4]]
+    if out[5] is not None:
+        parts.append(out[5].transpose(0, 1).reshape(out[0].shape[0], -1))
+    return torch.cat(parts, 1).double()
+
+
+def _mask_diffs(out, ref):
+    """Scenarios whose alive, termination substep or success differ."""
+    return {n: int((out[i] != ref[i]).sum())
+            for i, n in ((1, "alive"), (2, "i_term_sub"), (3, "success"))}
+
+
+def rk4_bound(plant, args, out, j):
+    """The least time of one tick: operations over the fp32 or fp64 peak
+    (alive scenario-substeps of this run's data at ``RK4_OPS_ALIVE``, the
+    rest at ``RK4_OPS_DEAD``) against the bytes (each input read once, the
+    one held draw of the tick, each output written once) over HBM rate."""
+    import torch
+
+    x, alive, i_term = args[0], args[1], out[2]
+    B, n_sub = x.shape[0], plant.n_sub
+    g0 = j * n_sub
+    died = alive & ~out[1]
+    live_sub = torch.where(died, i_term - g0, torch.where(alive, n_sub, 0))
+    n_live = int(live_sub.sum())
+    flops = RK4_OPS_ALIVE * n_live + RK4_OPS_DEAD * (B * n_sub - n_live)
+    draws = args[6]
+    n_held = ((g0 + n_sub - 1) // plant.noise_int_sub
+              - g0 // plant.noise_int_sub + 1)
+    nbytes = (sum(t.numel() * t.element_size() for t in args[:6])
+              + n_held * draws[0].numel() * draws.element_size()
+              + sum(t.numel() * t.element_size() for t in out
+                    if t is not None))
+    peak = PEAK_FP64 if x.dtype == torch.float64 else PEAK_FP32
+    return _bound(flops, nbytes, peak)
+
+
+def check_rk4_tick(engine, B=1024, j=37):
+    """``rk4_tick`` against its twin at batch ``B`` on the inputs of
+    ``tests/torch_helpers.tick_inputs`` (states spread over the approach,
+    scenarios placed to dock and to terminate within the tick, dead and
+    successful ones, the radialC draws), on the engine's plant: both input models (acceleration and
+    delta-v), telemetry on and off, fp32 and fp64. fp64: the masks (alive,
+    termination substep, success) equal and the states within 1e-9. fp32:
+    each scenario's states within 1e-4 of the fp32 twin or no farther from
+    the fp64 twin than 4x the fp32 twin plus 1e-4 (the chunk kernels'
+    rule); mask disagreements are printed. Then timed (CUDA events) in
+    fp32 and fp64 beside the fp32 twin, with its bound and the latency of
+    the substep chain (one warp of 32 scenarios). Returns the JSON entry
+    (without launches)."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import rk4_tick as rk
+
+    sys.path.insert(0, TESTS)
+    from torch_helpers import tick_inputs
+
+    max_abs = 0.0
+    base64 = tuple(v.cuda() for v in tick_inputs(engine.plant, B, 21, j)[0])
+    for delta_v in (False, True):
+        plant = engine.plant._replace(is_delta_v=delta_v)
+        for telemetry in (False, True):
+            ref64 = rk.rk4_tick_plain(*base64, j, plant, telemetry)
+            for dt in (torch.float64, torch.float32):
+                label = (f"rk4_tick {str(dt)[6:]}, "
+                         f"{'delta-v' if delta_v else 'acceleration'}, "
+                         f"telemetry {'on' if telemetry else 'off'}")
+                a = tuple(v.to(dt) if v.is_floating_point() else v
+                          for v in base64)
+                ker = _launch(rk.rk4_tick, a + (j, plant),
+                              dict(telemetry=telemetry), label)
+                ref = rk.rk4_tick_plain(*a, j, plant, telemetry)
+                e = (_tick_states(ker) - _tick_states(ref)).abs().amax(1)
+                masks = _mask_diffs(ker, ref)
+                summary = dict(
+                    max_abs_err=float(e.max()), terminated=int(
+                        (a[1] & ~ker[1]).sum()),
+                    newly_successful=int((ker[3] & ~a[3]).sum()),
+                    mask_diffs_vs_twin=masks)
+                if dt == torch.float64:
+                    ok = not any(masks.values()) and float(e.max()) <= 1e-9
+                else:
+                    e_k = (_tick_states(ker) - _tick_states(ref64)).abs().amax(1)
+                    e_t = (_tick_states(ref) - _tick_states(ref64)).abs().amax(1)
+                    worse = (e > 1e-4) & (e_k > 4.0 * e_t + 1e-4)
+                    for row in torch.nonzero(worse).squeeze(1).tolist()[:20]:
+                        log(f"  [{label}] row {row}: vs fp64 kernel "
+                            f"{float(e_k[row]):.3e}, fp32 twin "
+                            f"{float(e_t[row]):.3e}")
+                    summary.update(mask_diffs_vs_fp64_twin=_mask_diffs(ker,
+                                                                       ref64),
+                                   max_err_vs_fp64_kernel=float(e_k.max()),
+                                   max_err_vs_fp64_twin=float(e_t.max()))
+                    ok = not bool(worse.any())
+                    if not (delta_v or telemetry):
+                        max_abs = float(e.max())
+                log(f"  [{label}] {json.dumps(summary)}")
+                if not ok:
+                    raise AssertionError(f"{label}: kernel and plain version "
+                                         f"disagree: {summary}")
+    a = tuple(v.float() if v.is_floating_point() else v for v in base64)
+    plant = engine.plant
+    ms = time_ms(lambda: rk.rk4_tick(*a, j, plant))
+    plain_ms = time_ms(lambda: rk.rk4_tick_plain(*a, j, plant), 3)
+    ms64 = time_ms(lambda: rk.rk4_tick(*base64, j, plant))
+    ms_tel = time_ms(lambda: rk.rk4_tick(*a, j, plant, telemetry=True))
+    warp = tuple(v[:32] for v in a[:6]) + (a[6][:, :32].contiguous(),)
+    chain_ms = time_ms(lambda: rk.rk4_tick(*warp, j, plant))
+    bound_ms, bound_by = rk4_bound(plant, a, rk.rk4_tick(*a, j, plant), j)
+    bound64, by64 = rk4_bound(plant, base64, rk.rk4_tick(*base64, j, plant),
+                              j)
+    log(f"rk4_tick, {plant.n_sub} substeps, B={B}: fp32 kernel {ms:.4f} ms "
+        f"(telemetry on {ms_tel:.4f} ms), fp64 kernel {ms64:.4f} ms, fp32 "
+        f"plain {plain_ms:.3f} ms (median of 20; plain of 3; CUDA events); "
+        f"bound fp32 {bound_ms:.5f} ms ({bound_by}), fp64 {bound64:.5f} ms "
+        f"({by64}); the substep chain of one warp (32 scenarios), fp32: "
+        f"{chain_ms:.4f} ms")
+    return dict(name="rk4_tick", route="cuda",
+                source="mpc_arpo_project_tpu_torch/csrc/rk4_tick.cu",
+                replaces="mpc_arpo_project_tpu/rollout/continuous.py:207-269 "
+                         "(an XLA lax.scan; no pallas_call)",
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def continuous_main_path(engine, B, seed):
+    """The continuous closed loop on the card: every kernel count set to 0
+    just before and read just after; per tick the solve span
+    (``admm_solve``) and the ``rk4_tick`` span from CUDA events, the rest
+    from the host clock; returns the counts and the numbers to report."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import admm, rk4_tick as rk
+    from mpc_arpo_project_tpu_torch.rollout import continuous
+
+    counters = _counters()
+    gen = torch.Generator(device=engine.base.device).manual_seed(seed)
+    draws = continuous.make_noise_draws(engine, gen, B)
+    spans = {"solve": [], "rk4_tick": []}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(admm, admm_solve=timed("solve", admm.admm_solve)), \
+            _patched(rk, rk4_tick=timed("rk4_tick", rk.rk4_tick)):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = continuous.rollout_chunked(
+            engine, draws, seg=20,
+            progress=lambda d, t, c: log(f"  [continuous] tick {d}/{t}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters(counters)
+    ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in spans.items()}
+
+    n_ticks = engine.n_ticks - 1  # ticks run j = 1 .. n_ticks-1
+    n_total = engine.n_ticks * engine.n_sub
+    if launches["rk4_tick"] != n_ticks:
+        raise AssertionError(f"rk4_tick launched {launches['rk4_tick']} "
+                             f"times in {n_ticks} ticks")
+    if launches["eig_chunk"] <= 0:
+        raise AssertionError("the continuous main path launched no eig_chunk")
+    status = out.status.cpu()
+    codes = out.ctrl_seq.cpu()
+    alive = codes > 0
+    if not ((status[alive] >= 0) & (status[alive] <= 4)).all():
+        raise AssertionError("alive status outside {0..4}")
+    if not (status[~alive] == -1).all():
+        raise AssertionError("dead-tick status is not -1")
+    expect = {"x_true_ticks": (engine.n_ticks + 1, B, 4),
+              "x_est": (engine.n_ticks + 1, B, 6),
+              "ctrls": (engine.n_ticks + 1, B, 2), "status": (n_ticks, B),
+              "i_term_sub": (B,)}
+    for name, shape in expect.items():
+        v = getattr(out, name)
+        if tuple(v.shape) != shape:
+            raise AssertionError(f"{name} shape {tuple(v.shape)}")
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"non-finite {name}")
+    i_term = out.i_term_sub.cpu()
+    if not ((i_term >= engine.n_sub) & (i_term <= n_total)).all():
+        raise AssertionError("i_term_sub outside [n_sub, n_total]")
+    n_alive = int(alive.sum())
+    names = {0: "UNSOLVED", 1: "SOLVED", 2: "MAX_ITER", 3: "PINF", 4: "DINF"}
+    mix = {v: int((status[alive] == k).sum()) / max(n_alive, 1)
+           for k, v in names.items()}
+    ctrl_names = {1: "mpc", 2: "failsafe", 3: "debris_deadbeat"}
+    ctrl_mix = {v: int((codes[alive] == k).sum()) / max(n_alive, 1)
+                for k, v in ctrl_names.items()}
+    wall_ms = wall * 1000.0
+    alive_sub = int((i_term.long() - engine.n_sub).sum())
+    q = torch.quantile(i_term.double(), torch.tensor(
+        [0.0, 0.25, 0.5, 0.75, 1.0], dtype=torch.float64)).tolist()
+    return launches, dict(
+        config="radialC (examples/common.py, noisy, T_cont=1e-3), Nx=40",
+        solve_mode=engine.base.settings.solve_mode,
+        dtype=str(engine.base.dtype)[6:], ticks=n_ticks,
+        substeps_per_tick=engine.n_sub, batch=B, wall_s=wall,
+        per_tick_ms={"total": wall_ms / n_ticks,
+                     "solve": ms["solve"] / n_ticks,
+                     "rk4_tick": ms["rk4_tick"] / n_ticks,
+                     "rest": (wall_ms - ms["solve"] - ms["rk4_tick"]) / n_ticks},
+        scenario_substeps_per_s=B * n_ticks * engine.n_sub / wall,
+        alive_scenario_substeps_per_s=alive_sub / wall,
+        alive_ticks=n_alive, alive_solves_per_s=n_alive / wall,
+        status_mix_alive=mix, controller_mix_alive=ctrl_mix,
+        mean_admm_iters_per_tick=float(out.iters.float().mean()),
+        docked_share=float(out.success.float().mean()),
+        terminated_share=float((i_term < n_total).float().mean()),
+        i_term_sub_quartiles=q,
+        launches=launches,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+    )
+
+
+def continuous_agreement(seed, solve_mode):
+    """3 s of the fp64 continuous loop (5 ticks of 500 substeps) at B=8 on
+    the card (kernels) and on the CPU (twins), from initial states that
+    include one that docks and one that terminates on its first tick."""
+    import torch
+    from mpc_arpo_project_tpu_torch.rollout import continuous
+
+    rng = np.random.default_rng(seed)
+    x0b = np.concatenate([rng.uniform(3.5, 60, (8, 1)),
+                          rng.uniform(-5, 5, (8, 1)), np.zeros((8, 2))], 1)
+    x0b[1] = [3.1, 0.05, -0.4, 0.0]
+    x0b[3] = [0.8, 3.0, 0.1, -0.3]
+    outs, draws = [], None
+    for device in ("cuda", "cpu"):
+        eng = radial_c(3.0, device, torch.float64, solve_mode)
+        if draws is None:
+            n_draws = eng.n_ticks * eng.n_sub // eng.noise_int_sub + 2
+            draws = float(eng.sig_cont) * rng.standard_normal((n_draws, 8, 2))
+        outs.append(continuous.rollout(eng, draws, torch.as_tensor(x0b)))
+    g, c = outs
+    for name in ("status", "ctrl_seq", "i_term_sub", "success", "done_iters"):
+        if not torch.equal(getattr(g, name).cpu(), getattr(c, name)):
+            raise AssertionError(f"continuous agreement ({solve_mode}): {name}"
+                                 f" differs\n{getattr(g, name).cpu()}\n"
+                                 f"{getattr(c, name)}")
+    dx = float((g.x_true_ticks.cpu() - c.x_true_ticks).abs().max())
+    if dx > 1e-6:
+        raise AssertionError(f"continuous agreement ({solve_mode}): "
+                             f"x_true_ticks differs by {dx}")
+    log(f"  [continuous {solve_mode}] 5 ticks of 500 substeps, B=8, fp64: "
+        f"statuses, codes, i_term_sub {c.i_term_sub.tolist()}, success "
+        f"{c.success.tolist()} and done_iters equal; max |x_true_ticks "
+        f"diff| = {dx:.3e}")
+
+
 def _foreign_modules():
     return sorted(m for m in sys.modules
                   if m in ("jax", "mpc_arpo_project_tpu", "tools")
@@ -1233,7 +1583,8 @@ def main() -> int:
         return 1
     dump = (sys.argv[sys.argv.index("--ns-dump") + 1]
             if "--ns-dump" in sys.argv else None)
-    from mpc_arpo_project_tpu_torch.ops import _build, admm_eig, admm_pallas
+    from mpc_arpo_project_tpu_torch.ops import (
+        _build, admm_eig, admm_pallas, rk4_tick)
     from mpc_arpo_project_tpu_torch.tools import kernel_probe
 
     t_start = time.perf_counter()
@@ -1253,7 +1604,8 @@ def main() -> int:
             **{n: partial(admm_pallas._chunk_lib, n)
                for n in admm_pallas.CHUNK_LIBS},
             "ns_inverse": admm_pallas._ns_lib,
-            "kernel_probe": kernel_probe._lib}
+            "kernel_probe": kernel_probe._lib,
+            "rk4_tick": rk4_tick._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(f) for f in libs.values()]:
             fut.result()
@@ -1290,25 +1642,38 @@ def main() -> int:
     entries.append(check_probe())
     log(f"probe done at {time.perf_counter() - t_start:.1f} s")
 
-    # 5-7. the main paths; a kernel's launches are those of the paths that
+    # 5. the continuous plant's tick kernel against plain
+    cont_engine = radial_c(CONT_T_FINAL, "cuda", torch.float32, "eig")
+    entries.append(check_rk4_tick(cont_engine, B))
+    log(f"rk4_tick checks done at {time.perf_counter() - t_start:.1f} s")
+
+    # 6-9. the main paths; a kernel's launches are those of the paths that
     # run it (the probe runs on none of them)
     chol_engine = flagship(10.0, "cuda", torch.float64, "chol")
     launches = {}
-    for engine, seed in ((eig_engine, 2), (pal_engine, 2), (chol_engine, 2)):
-        counts, rep = main_path(engine, B, seed)
-        log(f"main path ({engine.settings.solve_mode}): " + json.dumps(rep))
+    for engine, seed in ((eig_engine, 2), (pal_engine, 2), (chol_engine, 2),
+                         (cont_engine, 8)):
+        if engine is cont_engine:
+            counts, rep = continuous_main_path(engine, B, seed)
+            log("main path (continuous): " + json.dumps(rep))
+        else:
+            counts, rep = main_path(engine, B, seed)
+            log(f"main path ({engine.settings.solve_mode}): "
+                + json.dumps(rep))
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
-    # 8. small end-to-end agreement, card against CPU
+    # 10. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(4, "pallas")
     small_agreement(5, "chol")
     small_agreement(6, "chol", estimator="kf")
     small_agreement(7, "chol", synthesis="torch")
+    continuous_agreement(9, "eig")
+    continuous_agreement(10, "chol")
 
-    # 9. import check
+    # 11. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")

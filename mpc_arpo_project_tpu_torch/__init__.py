@@ -7,7 +7,10 @@ never imports JAX nor anything of the JAX package: what it needs of the
 reference's JAX-free modules it keeps as its own copies (``config``,
 ``ops.qp_builder``, ``ops.host_synthesis``).
 
-Ported so far: the discrete closed loop (``rollout.discrete``) with the
+Ported so far: the discrete closed loop (``rollout.discrete``) and the
+continuous-time closed loop on the nonlinear two-body plant
+(``rollout.continuous``, ``models.nonlinear`` and the CUDA tick kernel
+``ops.rk4_tick``), with the
 'chol' solve (``ops.admm``: batched Cholesky, the default), the 'eig' solve
 (``ops.admm_eig`` and its CUDA chunk kernel) and the 'pallas' solve
 (``ops.admm_pallas`` and its CUDA chunk and Newton–Schulz kernels), the UKF
@@ -28,7 +31,7 @@ from mpc_arpo_project_tpu_torch.config import (
     FailsafeParams,
     SimRun,
 )
-from mpc_arpo_project_tpu_torch.rollout import discrete
+from mpc_arpo_project_tpu_torch.rollout import continuous, discrete
 
 __all__ = [
     "Noise",
@@ -37,5 +40,6 @@ __all__ = [
     "MPCParams",
     "FailsafeParams",
     "SimRun",
+    "continuous",
     "discrete",
 ]

@@ -20,21 +20,29 @@ steps. The six probe kernels (fp32 only) run on the probe's unit-gain
 inputs at nz=32, m=64, B=8, bt=4 and at a ragged nz=40 (B=6, bt=3), held to
 their twins to 1e-5 per row (``kernel_probe.check_against_twin``; the bf16
 kernel at one iteration, and over more on matrices where its arithmetic is
-exact).
+exact). ``rk4_tick`` (one tick of the continuous plant's 500 RK4 substeps)
+runs on ``tick_inputs`` against its twin on the card: in fp64 the masks
+(alive, termination substep, success) equal and the states within 1e-9;
+in fp32 each scenario's states within 1e-4 of the fp32 twin or no farther
+from the fp64 twin than 4x the fp32 twin plus 1e-4. A B=8 continuous
+closed loop on the card equals the CPU's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mpc_arpo_project_tpu_torch.config import Noise, SimConditions
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
-from mpc_arpo_project_tpu_torch.ops import constraints
+from mpc_arpo_project_tpu_torch.ops import constraints, rk4_tick
+from mpc_arpo_project_tpu_torch.rollout import continuous
 from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
 from torch_helpers import (
-    chunk_inputs, flagship_parts, pallas_inputs, static_problem)
+    chunk_inputs, flagship_parts, pallas_inputs, radial_c_plant,
+    static_problem, tick_inputs)
 
 TOL = 1e-10
 pytestmark = pytest.mark.cuda
@@ -571,3 +579,123 @@ def test_cuda_admm_chunk_refuses_a_layout_it_does_not_take(gpu, pallas):
                                **_on_card(a, k, torch.float32, gpu)[1],
                                n_live=9)
     assert admm_pallas.admm_chunk.launches == n0
+
+
+def _tick_states(out):
+    """x_end, x_after_first and (with telemetry) every substep's state of a
+    tick, one row per scenario."""
+    parts = [out[0], out[4]]
+    if out[5] is not None:
+        parts.append(out[5].transpose(0, 1).reshape(out[0].shape[0], -1))
+    return torch.cat(parts, 1).double()
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+@pytest.mark.parametrize("model", ["acceleration", "delta_v", "in_track"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_rk4_tick_matches_twin(gpu, dtype, model, telemetry):
+    """The kernel against its twin on the same card inputs (B=300, a ragged
+    last block; the draw switched every 7 substeps so that it changes
+    inside the tick), one launch counted; 'in_track' terminates on the y
+    axis instead of the x axis."""
+    plant = radial_c_plant(dtype, is_delta_v=model == "delta_v",
+                           in_track=model == "in_track", noise_int_sub=7)
+    a, j = tick_inputs(plant, 300, 11)
+    on = lambda v: v.to(gpu, dtype) if v.is_floating_point() else v.to(gpu)
+    ag = tuple(on(v) for v in a)
+    n0 = rk4_tick.rk4_tick.launches
+    ker = rk4_tick.rk4_tick(*ag, j, plant, telemetry=telemetry)
+    torch.cuda.synchronize()
+    assert rk4_tick.rk4_tick.launches == n0 + 1
+    ref = rk4_tick.rk4_tick_plain(*ag, j, plant, telemetry=telemetry)
+    assert (ker[5] is None) == (not telemetry)
+    # the inputs reach what they were placed for: deaths on entry and in
+    # the tick, survivors and (where the x axis is the approach axis, so
+    # that the docking states are not cut off first) new successes
+    dead = ~a[1].to(gpu) | ~ker[1]
+    assert dead.any() and ker[1].any()
+    assert model == "in_track" or (ker[3] & ~ag[3]).any()
+    e = (_tick_states(ker) - _tick_states(ref)).abs().amax(1)
+    if dtype == torch.float64:
+        for i in (1, 2, 3):
+            assert torch.equal(ker[i], ref[i]), i
+        assert float(e.max()) <= 1e-9
+    else:
+        ref64 = rk4_tick.rk4_tick_plain(*(on(v).double() if v.is_floating_point()
+                                          else on(v) for v in a), j, plant,
+                                        telemetry=telemetry)
+        e_k = (_tick_states(ker) - _tick_states(ref64)).abs().amax(1)
+        e_t = (_tick_states(ref) - _tick_states(ref64)).abs().amax(1)
+        assert not ((e > 1e-4) & (e_k > 4 * e_t + 1e-4)).any()
+
+
+def test_cuda_rk4_tick_refuses_what_the_kernel_does_not_take(gpu):
+    """A half-precision state, a tensor left on the CPU, a strided input or
+    draws that end before the tick does raise, and no launch is counted."""
+    plant = radial_c_plant()
+    a, j = tick_inputs(plant, 64, 2)
+    ag = [v.to(gpu) for v in a]
+    n0 = rk4_tick.rk4_tick.launches
+    bad = [(0, ag[0].half(), TypeError), (4, a[4], ValueError),
+           (5, torch.cat([ag[5], ag[5]], 1)[:, ::2], ValueError),
+           (6, ag[6][:0], ValueError)]
+    for i, v, err in bad:
+        args = list(ag)
+        args[i] = v
+        with pytest.raises(err):
+            rk4_tick.rk4_tick(*args, j, plant)
+    assert rk4_tick.rk4_tick.launches == n0
+
+
+def test_cuda_continuous_rollout_matches_cpu(gpu):
+    """B=8 fp64 continuous closed loop of the radialC scenario for 3 s on
+    the card (the kernels) and on the CPU (the twins): statuses, codes,
+    termination substeps, success and done_iters equal, trajectories
+    within 1e-6; one ``rk4_tick`` launch per tick."""
+    mpc, fail, debris = flagship_parts(Nx=40)
+    sim = SimConditions(
+        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
+        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
+        Noise((0.0012, 0.0012), 50), False, T_cont=1e-3, T_final=3.0)
+    rng = np.random.default_rng(5)
+    x0b = np.concatenate([rng.uniform(3.5, 60, (8, 1)),
+                          rng.uniform(-5, 5, (8, 1)), np.zeros((8, 2))], 1)
+    x0b[1] = [3.1, 0.05, -0.4, 0.0]
+    x0b[3] = [0.8, 3.0, 0.1, -0.3]
+    outs = []
+    for device in (gpu, "cpu"):
+        eng = continuous.build_engine(
+            sim, mpc, fail, debris, settings=admm.ADMMSettings(max_iter=1000),
+            dtype=torch.float64, device=device)
+        if not outs:
+            n_draws = eng.n_ticks * eng.n_sub // eng.noise_int_sub + 2
+            draws = float(eng.sig_cont) * rng.standard_normal((n_draws, 8, 2))
+        n0 = rk4_tick.rk4_tick.launches
+        outs.append(continuous.rollout(eng, draws, torch.as_tensor(x0b)))
+        if device is gpu:
+            assert rk4_tick.rk4_tick.launches == n0 + eng.n_ticks - 1
+    g, c = outs
+    for name in ("status", "ctrl_seq", "i_term_sub", "success", "done_iters"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert float((g.x_true_ticks.cpu() - c.x_true_ticks).abs().max()) <= 1e-6
+    assert int(c.i_term_sub[3]) == eng.n_sub
+
+
+def test_cuda_continuous_rollout_from_the_engine_start(gpu):
+    """With no initial states the loop starts every scenario at the
+    engine's x0 (an expanded view, made contiguous for the kernel): one
+    tick in fp32 on the card, finite and one ``rk4_tick`` launch."""
+    mpc, fail, debris = flagship_parts(Nx=40)
+    sim = SimConditions(
+        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
+        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
+        Noise((0.0012, 0.0012), 50), False, T_cont=1e-3, T_final=1.0)
+    eng = continuous.build_engine(sim, mpc, fail, debris,
+                                  settings=admm.ADMMSettings(max_iter=200),
+                                  dtype=torch.float32, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(0)
+    n0 = rk4_tick.rk4_tick.launches
+    out = continuous.rollout(eng, continuous.make_noise_draws(eng, gen, 4))
+    assert rk4_tick.rk4_tick.launches == n0 + 1
+    assert out.x_true_ticks.shape == (3, 4, 4)
+    assert torch.isfinite(out.x_true_ticks).all()

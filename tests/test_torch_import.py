@@ -17,9 +17,9 @@ def test_port_imports_no_jax():
         "from mpc_arpo_project_tpu_torch import config\n"
         "from mpc_arpo_project_tpu_torch.ops import _build, admm, admm_eig, "
         "admm_pallas, constraints, host_synthesis, kalman, qp_builder, "
-        "riccati, ukf\n"
-        "from mpc_arpo_project_tpu_torch.models import cw\n"
-        "from mpc_arpo_project_tpu_torch.rollout import discrete\n"
+        "riccati, rk4_tick, ukf\n"
+        "from mpc_arpo_project_tpu_torch.models import cw, nonlinear\n"
+        "from mpc_arpo_project_tpu_torch.rollout import continuous, discrete\n"
         "from mpc_arpo_project_tpu_torch.tools import kernel_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') or m == 'flax' "

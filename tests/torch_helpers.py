@@ -14,6 +14,8 @@ without JAX can use it too.
 * ``capture_chunks``, ``chunk_inputs`` and ``pallas_inputs``: real inputs
   of the chunk kernels (``eig_chunk``, ``admm_chunk``) and of the
   Newton–Schulz refresh, taken from port solves on the CPU.
+* ``radial_c_plant`` and ``tick_inputs``: the radialC plant's tick
+  constants and one tick's inputs of ``rk4_tick``.
 """
 
 import types
@@ -28,6 +30,7 @@ from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
 from mpc_arpo_project_tpu_torch.ops.host_synthesis import (
     discretize_np, synth_gains_np)
 from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
+from mpc_arpo_project_tpu_torch.ops.rk4_tick import TickPlant
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -159,3 +162,55 @@ def pallas_inputs(prob, l, u):
     need = torch.tensor([True, False, True, True, False, True, True, False])
     return dict(chunk=chunk, stack=stack, w=t(w), M=M, X_warm=X_warm,
                 need=need, coeffs=ns_coeffs, r=r, sigma=sigma)
+
+
+def radial_c_plant(dtype=torch.float64, **changes):
+    """The tick constants of the radialC scenario (T = 0.5 s, T_cont = 1 ms:
+    500 substeps; noise held 50 ticks), rounded to ``dtype`` as
+    ``continuous.build_engine`` rounds them; ``changes`` replace fields."""
+    r = lambda v: float(torch.tensor(float(v), dtype=dtype))
+    plant = TickPlant(n_sub=500, noise_int_sub=25000, is_delta_v=False,
+                      in_track=False, mean_mtn=r(1.107e-3), T_cont=r(1e-3),
+                      rp=r(2.5), rtol=r(1.5), xr=(r(2.5), r(0.0)),
+                      dist_tol=r(0.2), ang_tol=r(45.0))
+    return plant._replace(**changes)
+
+
+def tick_inputs(plant, B, seed, j=3):
+    """One tick's ``rk4_tick`` inputs (float64 CPU tensors, in the
+    function's argument order up to ``noise_draws``), and ``j``: states
+    spread over the approach (ranges 3-100 m within 30 degrees of the
+    x-axis, speeds ~0.3 m/s) with every eighth scenario placed to dock
+    within the tick (a step short of the target, closing at 0.8 m/s: it
+    succeeds, then terminates inside the platform radius), every eighth
+    to cross the x < rp - rtol plane, a few at rest beside the target
+    (atan(0/0) is NaN, which must fail the success test), every 16th
+    dead on entry and every tenth already successful; controls within the
+    0.2 m/s^2 disk; draws of the radialC sigma (0.0012 sqrt(1 ms))."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(3.0, 100.0, B)
+    th = rng.uniform(-0.5, 0.5, B)
+    x = np.stack([r * np.cos(th), r * np.sin(th),
+                  rng.normal(0, 0.3, B), rng.normal(0, 0.3, B)], 1)
+    idx = np.arange(B)
+    dock, cross = idx % 8 == 1, idx % 8 == 2
+    nd, nc = int(dock.sum()), int(cross.sum())
+    x[dock] = np.stack([2.62 + 0.1 * rng.random(nd),
+                        0.05 * rng.standard_normal(nd), np.full(nd, -0.8),
+                        0.05 * rng.standard_normal(nd)], 1)
+    x[cross] = np.stack([1.1 + 0.2 * rng.random(nc), 4.0 + rng.random(nc),
+                         np.full(nc, -1.5), np.zeros(nc)], 1)
+    x[idx % 37 == 5] = [2.55, 0.0, 0.0, 0.0]
+    alive = idx % 16 != 3
+    i_term = np.where(alive, 10 ** 6, j * plant.n_sub - 17).astype(np.int32)
+
+    def disk(n):
+        a = rng.uniform(0, 2 * np.pi, n)
+        return 0.2 * np.sqrt(rng.random(n))[:, None] * np.stack(
+            [np.cos(a), np.sin(a)], 1)
+
+    n_draws = ((j + 1) * plant.n_sub - 1) // plant.noise_int_sub + 2
+    draws = 0.0012 * np.sqrt(1e-3) * rng.standard_normal((n_draws, B, 2))
+    t = torch.as_tensor
+    return (t(x), t(alive), t(i_term), t(idx % 10 == 7), t(disk(B)),
+            t(disk(B)), t(draws)), j
