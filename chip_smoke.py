@@ -58,14 +58,28 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    into the solve span, the ``rk4_tick`` span and the rest, scenario
    substeps/s, the status and controller mix of alive ticks, the docked
    share, the termination substep's quartiles and the peak memory;
-10. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+10. the sweeps (``parallel``) over an NCCL process group of one rank, on
+   a flat ("data",) mesh: ``run_sweep`` of the flagship 'eig' engine
+   (fp32, 20 steps) over 2048 scenarios in chunks of 1024 with a
+   checkpoint; its resume from a checkpoint cut after chunk 0, which must
+   give the same counts and the mean final distance within 1e-6 (bit
+   identity is printed); a batch against its two halves on the same draws
+   (fp64 'eig' at B=256: the same termination, success and controller
+   codes per scenario and stats within 1e-9; fp32 at B=1024: the count of
+   scenarios that differ is printed); the fused disturbance-rejection
+   study (sigma 0.7, hold lengths 10, 50 and 150 steps, 170 runs each, both
+   arms: 1020 scenarios for 100 steps); and ``chunk_stats`` of the
+   continuous radialC engine at B=1024 for 20 ticks. Its ``sweep:`` line
+   holds scenarios/s, alive-solves/s, the outcome sums, the checks and the
+   study's ratios;
+11. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination and ``done_iters``, and trajectories within 1e-6; for
    'eig', 'pallas' and 'chol', and for 'chol' with ``estimator='kf'`` and
    with ``synthesis='torch'``; and 5 ticks of the continuous loop in fp64
    at B=8 ('eig' and 'chol'), which must also give the same termination
    substeps and success;
-11. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
+12. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
    was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -74,7 +88,8 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
+Prints the ``sweep:`` line and the kernels' JSON line, then
+``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
 """
@@ -138,19 +153,26 @@ def _settings(solve_mode, max_iter=4000):
         eig_cold_iters=30, eig_compact_chunks=(2, 4, 8, 16, 24))
 
 
+def flagship_sim(T_final, sigma=0.75):
+    """The flagship scenario (``bench.py``: radial approach, offset-free,
+    noise ``sigma`` held 50 steps)."""
+    from mpc_arpo_project_tpu_torch import Noise, SimConditions
+
+    return SimConditions(
+        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
+        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
+        Noise((sigma, sigma), 50), False, T_final=T_final)
+
+
 def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
     """The flagship scenario and the production solver profile (the
     repository's bench configuration at its defaults, with
     ``BENCH_SOLVE_MODE=solve_mode``); ``engine_kw`` (``estimator``,
     ``synthesis``) goes to ``build_engine``."""
-    from mpc_arpo_project_tpu_torch import Noise, SimConditions
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
     mpc, fail, debris = _parts(50)
-    sim = SimConditions(
-        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
-        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
-        Noise((0.75, 0.75), 50), False, T_final=T_final)
+    sim = flagship_sim(T_final)
     return discrete.build_engine(sim, mpc, fail, debris,
                                  settings=_settings(solve_mode), dtype=dtype,
                                  device=device, **engine_kw)
@@ -1568,6 +1590,294 @@ def continuous_agreement(seed, solve_mode):
         f"diff| = {dx:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the Monte-Carlo sweeps over torch.distributed (NCCL)
+# ---------------------------------------------------------------------------
+
+# the sweep phase's sizes: chunks of 1024 flagship scenarios (the width of
+# every other cell), two of them (``examples/pod_sweep.py`` runs 4096);
+# the fused study of ``examples/disturb_rej_comp.py --quick`` (sigma 0.7,
+# hold lengths 10, 50, 150 steps, 50 s) with 170 runs a setting, so
+# 2 arms x 3 lengths x 170 = 1020 scenarios in one batch
+SWEEP_TOTAL, SWEEP_CHUNK = 2048, 1024
+STUDY_HOLDS, STUDY_RUNS, STUDY_SIGMA, STUDY_T_FINAL = (10, 50, 150), 170, 0.7, 50.0
+# the continuous branch of ``chunk_stats``: 20 ticks run (j = 1 .. 20)
+SWEEP_CONT_T_FINAL = 10.5
+
+
+def _sweep_counts(res):
+    """The counts of a ``run_sweep`` result, by name."""
+    return dict(n=res["n"], success_rate=res["success_rate"],
+                mean_i_term=res["mean_i_term"],
+                total_admm_iters=res["total_admm_iters"], **res["ctrl_usage"])
+
+
+def _composition(engine, B, seed):
+    """One batch of ``B`` against its two halves on the same draws, each
+    rolled out directly: the per-scenario termination step, success and
+    controller codes, and the chunk statistics of the whole against the sum
+    over the halves (every count but ``sum_iters``, which sums per-step
+    batch maxima, and the final-distance sum by its relative difference).
+    Returns (scenarios that differ, stats that differ, relative difference
+    of the final-distance sums, scenarios of the whole batch that
+    terminated before the last step, that succeeded)."""
+    import torch
+    from mpc_arpo_project_tpu_torch.parallel import mc
+    from mpc_arpo_project_tpu_torch.rollout import discrete
+
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    noise = discrete.make_noise_sequence(engine, gen, B)
+    w, a, b = (discrete.rollout(engine, n)
+               for n in (noise, noise[:, :B // 2], noise[:, B // 2:]))
+    cat = lambda name: torch.cat([getattr(a, name), getattr(b, name)], -1)
+    same = ((w.i_term == cat("i_term")) & (w.success == cat("success"))
+            & (w.ctrl_seq == cat("ctrl_seq")).all(0))
+    whole, *halves = (mc._out_stats(engine, o)[0] for o in (w, a, b))
+    differ = [k for k in ("n", "n_success", "sum_i_term", "n_mpc",
+                          "n_failsafe", "n_deadbeat")
+              if int(getattr(whole, k)) != sum(int(getattr(h, k))
+                                               for h in halves)]
+    fd = sum(float(h.sum_final_dist) for h in halves)
+    rel = abs(float(whole.sum_final_dist) - fd) / abs(float(
+        whole.sum_final_dist))
+    return (int((~same).sum()), differ, rel,
+            int((w.i_term < engine.nsim).sum()), int(w.success.sum()))
+
+
+def _study_direct(sim, mpc, fail, debris, seed, **engine_kw):
+    """The fused study's batch (the engine, draws and per-scenario
+    ``is_reject`` that ``disturbance_rejection_study_fused`` builds from
+    the same arguments) rolled out directly in this process. Returns the
+    output, the steps and the ratios of its final-distance sums."""
+    import dataclasses
+    import torch
+    from mpc_arpo_project_tpu_torch.parallel import mc
+    from mpc_arpo_project_tpu_torch.rollout import discrete
+
+    L, R = len(STUDY_HOLDS), STUDY_RUNS
+    engine = discrete.build_engine(
+        dataclasses.replace(sim, isReject=True), mpc, fail, debris,
+        **engine_kw)
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    half = discrete.make_noise_sequence_multi(
+        engine, gen, np.repeat(np.asarray(STUDY_HOLDS, dtype=np.int64), R))
+    kw = dict(dtype=engine.dtype, device=engine.device)
+    is_rej = torch.cat([torch.ones(L * R, **kw), torch.zeros(L * R, **kw)])
+    out = discrete.rollout(engine, torch.cat([half, half], 1),
+                           is_reject_b=is_rej)
+    sums = mc._final_distance(out, engine.xr).reshape(2, L, R).sum(-1)
+    sums = sums.cpu().double().numpy()
+    return out, engine.nsim, sums[0] / np.maximum(sums[1], 1e-12)
+
+
+def sweep_phase(eig_engine, seed):
+    """The sweeps on the card over an NCCL process group of one rank: a
+    chunked, checkpointed ``run_sweep`` of the flagship 'eig' engine, its
+    resume from a checkpoint cut after chunk 0, the batch-composition
+    checks, the fused disturbance-rejection study and the continuous branch
+    of ``chunk_stats``. Every kernel count is set to 0 just before each
+    part and read just after; returns the counts summed over the runs of
+    the sweep path (the sweep, the study and the continuous chunk, not the
+    checks) and the report."""
+    import torch
+    import torch.distributed as dist
+    from mpc_arpo_project_tpu_torch.ops import _build
+    from mpc_arpo_project_tpu_torch.parallel import mc, mesh as mesh_lib
+    from mpc_arpo_project_tpu_torch.rollout import continuous
+
+    counters = _counters()
+    launches = {}
+
+    def part(fn, path):
+        """``fn()`` with the counts from 0, its wall time (host clock, the
+        device synchronised) and its launches; those of a ``path`` (a run
+        of the sweep path, not a check) are added to the phase's."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counters(counters)
+        if path:
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        return res, wall, {k: v for k, v in got.items() if v}
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = mesh_lib.make_mesh()
+        torch.cuda.reset_peak_memory_stats()
+        ck = os.path.join(_build.BUILD, "sweep_checkpoint.json")
+        ck0 = os.path.join(_build.BUILD, "sweep_checkpoint_cut.json")
+        os.makedirs(_build.BUILD, exist_ok=True)
+        for p in (ck, ck0):
+            if os.path.exists(p):
+                os.remove(p)
+        n_chunks = SWEEP_TOTAL // SWEEP_CHUNK
+
+        # 1. the chunked, checkpointed sweep
+        res, wall, sw_launch = part(lambda: mc.run_sweep(
+            eig_engine, SWEEP_TOTAL, SWEEP_CHUNK, seed, mesh=mesh,
+            checkpoint_path=ck), path=True)
+        with open(ck) as fh:
+            if json.load(fh)["next_chunk"] != n_chunks:
+                raise AssertionError("the checkpoint did not reach the end")
+        if res["n"] != SWEEP_TOTAL:
+            raise AssertionError(f"sweep n {res['n']}")
+        if not np.isfinite(res["mean_final_dist"]):
+            raise AssertionError("non-finite mean final distance")
+        alive = sum(res["ctrl_usage"].values())
+        if not 0 < alive <= eig_engine.nsim * SWEEP_TOTAL:
+            raise AssertionError(f"{alive} alive steps")
+        sweep = dict(
+            total=SWEEP_TOTAL, chunk=SWEEP_CHUNK, steps=eig_engine.nsim,
+            wall_s=wall, wall_per_chunk_s=wall / n_chunks,
+            scenarios_per_s=res["n"] / wall, alive_solves=alive,
+            alive_solves_per_s=alive / wall, launches=sw_launch, **res)
+        log("  [sweep] " + json.dumps(sweep))
+
+        # 2. resume from a checkpoint cut after chunk 0: the acc of a
+        # one-chunk sweep with the same seed, relabelled as the 2-chunk one
+        def resumed():
+            mc.run_sweep(eig_engine, SWEEP_CHUNK, SWEEP_CHUNK, seed, mesh=mesh,
+                         checkpoint_path=ck0)
+            with open(ck0) as fh:
+                state = json.load(fh)
+            if state["next_chunk"] != 1:
+                raise AssertionError("the cut checkpoint is not after chunk 0")
+            state["total"] = SWEEP_TOTAL
+            with open(ck0, "w") as fh:
+                json.dump(state, fh)
+            return mc.run_sweep(eig_engine, SWEEP_TOTAL, SWEEP_CHUNK, seed,
+                                mesh=mesh, checkpoint_path=ck0)
+        res2, wall2, res_launch = part(resumed, path=False)
+        if _sweep_counts(res2) != _sweep_counts(res):
+            raise AssertionError(f"resumed counts {_sweep_counts(res2)} != "
+                                 f"{_sweep_counts(res)}")
+        rel = abs(res2["mean_final_dist"] - res["mean_final_dist"]) / abs(
+            res["mean_final_dist"])
+        if rel > 1e-6:
+            raise AssertionError(f"resumed mean final distance off by {rel}")
+        resume = dict(counts_equal=True, mean_final_dist_rel_diff=rel,
+                      bit_identical=res2 == res, wall_s=wall2,
+                      launches=res_launch)
+        log("  [sweep resume] " + json.dumps(resume))
+
+        # 3. batch composition: a batch against its two halves; in fp64 at
+        # the study's depth, where scenarios terminate (none succeeds at the
+        # flagship's noise: success asks for 0.2 m of the target)
+        eng64 = flagship(STUDY_T_FINAL, "cuda", torch.float64, "eig")
+        (n64, differ64, rel64, term64, succ64), wall64, l64 = part(
+            lambda: _composition(eng64, 256, seed + 1), path=False)
+        if n64 or differ64 or rel64 > 1e-9:
+            raise AssertionError(
+                f"fp64 B=256 against its halves: {n64} scenarios and stats "
+                f"{differ64} differ, final distance by {rel64}")
+        if not term64:
+            raise AssertionError(
+                f"fp64 B=256: no scenario terminated in {eng64.nsim} steps")
+        (n32, differ32, rel32, term32, succ32), wall32, l32 = part(
+            lambda: _composition(eig_engine, SWEEP_CHUNK, seed + 2),
+            path=False)
+        composition = dict(
+            fp64_B256=dict(steps=eng64.nsim, scenarios_differing=n64,
+                           stats_differing=differ64,
+                           final_dist_rel_diff=rel64, terminated=term64,
+                           succeeded=succ64, wall_s=wall64, launches=l64),
+            fp32_B1024=dict(steps=eig_engine.nsim, scenarios_differing=n32,
+                            stats_differing=differ32,
+                            final_dist_rel_diff=rel32, terminated=term32,
+                            succeeded=succ32, wall_s=wall32, launches=l32))
+        log("  [sweep composition] " + json.dumps(composition))
+        del eng64
+
+        # 4. the fused disturbance-rejection study, then its batch rolled
+        # out directly (a check: its ratios, status mix and terminations)
+        mpc, fail, debris = _parts(50)
+        sim = flagship_sim(STUDY_T_FINAL, STUDY_SIGMA)
+        kw = dict(settings=_settings("eig"), dtype=torch.float32,
+                  device="cuda")
+        (nls, ratios), wall_st, st_launch = part(
+            lambda: mc.disturbance_rejection_study_fused(
+                sim, mpc, fail, debris, list(STUDY_HOLDS), STUDY_RUNS, seed,
+                mesh=mesh, **kw), path=True)
+        if not (np.isfinite(ratios).all() and (ratios > 0).all()):
+            raise AssertionError(f"study ratios {ratios}")
+        (out, nsim, ratios_d), wall_d, l_d = part(
+            lambda: _study_direct(sim, mpc, fail, debris, seed, **kw),
+            path=False)
+        ratio_rel = float(np.max(np.abs(ratios_d - ratios) / ratios))
+        if ratio_rel > 1e-6:
+            raise AssertionError(f"study ratios {ratios}, its batch rolled "
+                                 f"out directly {ratios_d}")
+        n_sc = 2 * len(STUDY_HOLDS) * STUDY_RUNS
+        if tuple(out.x_true.shape) != (nsim + 1, n_sc, 4):
+            raise AssertionError(f"study x_true {tuple(out.x_true.shape)}")
+        live = out.ctrl_seq > 0
+        alive_st = int(live.sum())
+        status = out.status[live]
+        term_st = int((out.i_term < nsim).sum())
+        if not term_st:
+            raise AssertionError(f"no study scenario terminated in {nsim} "
+                                 "steps")
+        study_rep = dict(
+            sigma=STUDY_SIGMA, hold_steps=list(STUDY_HOLDS),
+            runs_per_setting=STUDY_RUNS, scenarios=n_sc, steps=nsim,
+            ratios=[float(r) for r in ratios], wall_s=wall_st,
+            scenarios_per_s=n_sc / wall_st, alive_solves=alive_st,
+            alive_solves_per_s=alive_st / wall_st,
+            direct=dict(ratios_max_rel_diff=ratio_rel,
+                        bit_identical=bool((ratios_d == ratios).all()),
+                        wall_s=wall_d, launches=l_d, terminated=term_st,
+                        succeeded=int(out.success.sum()),
+                        mean_admm_iters_per_step=float(
+                            out.iters.float().mean()),
+                        status_mix_alive={
+                            n: int((status == k).sum()) / alive_st
+                            for k, n in ((1, "SOLVED"), (2, "MAX_ITER"),
+                                         (3, "PINF"), (4, "DINF"))}),
+            launches=st_launch)
+        log("  [sweep study] " + json.dumps(study_rep))
+        del out
+
+        # 5. the continuous branch of chunk_stats, reduced over the mesh
+        ceng = radial_c(SWEEP_CONT_T_FINAL, "cuda", torch.float32, "eig")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        draws = continuous.make_noise_draws(ceng, gen, SWEEP_CHUNK)
+        cst, wall_c, c_launch = part(
+            lambda: mc.sharded_stats_fn(ceng, mesh)(ceng, draws), path=True)
+        n_ticks = ceng.n_ticks - 1
+        if c_launch.get("rk4_tick") != n_ticks or not c_launch.get("eig_chunk"):
+            raise AssertionError(f"continuous chunk_stats launches {c_launch}")
+        if cst.n != SWEEP_CHUNK or not np.isfinite(cst.sum_final_dist):
+            raise AssertionError(f"continuous chunk_stats {cst}")
+        alive_c = cst.n_mpc + cst.n_failsafe + cst.n_deadbeat
+        cont_rep = dict(
+            ticks=n_ticks, batch=SWEEP_CHUNK, wall_s=wall_c,
+            ms_per_tick=1000.0 * wall_c / n_ticks,
+            scenario_substeps_per_s=SWEEP_CHUNK * n_ticks * ceng.n_sub / wall_c,
+            alive_solves_per_s=alive_c / wall_c, launches=c_launch,
+            **cst._asdict())
+        log("  [sweep continuous] " + json.dumps(cont_rep))
+
+        report = dict(
+            backend=dist.get_backend(), world=dist.get_world_size(),
+            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            config="flagship (bench.py defaults), Nx=50, fp32 'eig', "
+                   "T_final=10 s", sweep=sweep, resume=resume,
+            composition=composition, study=study_rep, continuous=cont_rep,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        dist.destroy_process_group()
+    return launches, report
+
+
 def _foreign_modules():
     return sorted(m for m in sys.modules
                   if m in ("jax", "mpc_arpo_project_tpu", "tools")
@@ -1664,7 +1974,13 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         log(f"  done at {time.perf_counter() - t_start:.1f} s")
 
-    # 10. small end-to-end agreement, card against CPU
+    # 10. the sweeps over NCCL; their launches count with the main paths'
+    counts, sweep_report = sweep_phase(eig_engine, 11)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"  sweeps done at {time.perf_counter() - t_start:.1f} s")
+
+    # 11. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(4, "pallas")
     small_agreement(5, "chol")
@@ -1673,7 +1989,7 @@ def main() -> int:
     continuous_agreement(9, "eig")
     continuous_agreement(10, "chol")
 
-    # 11. import check
+    # 12. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -1683,6 +1999,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print("sweep: " + json.dumps(sweep_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,12 @@ continuous-time closed loop on the nonlinear two-body plant
 (``ops.admm_eig`` and its CUDA chunk kernel) and the 'pallas' solve
 (``ops.admm_pallas`` and its CUDA chunk and Newton–Schulz kernels), the UKF
 (``ops.ukf``) and the KF (``ops.kalman``), the synthesis (``ops.riccati``),
-the CW model (``models.cw``), the dynamic constraints (``ops.constraints``)
-and the chunk-parts timing probe (``tools.kernel_probe`` and its CUDA
-kernels). Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+the CW model (``models.cw``), the dynamic constraints (``ops.constraints``),
+the chunk-parts timing probe (``tools.kernel_probe`` and its CUDA
+kernels), the Monte-Carlo sweeps and studies over ``torch.distributed``
+ranks (``parallel``: ``mc``, ``mesh``) and the utilities (``utils``:
+timing, numeric guards, run archives). Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -32,6 +34,7 @@ from mpc_arpo_project_tpu_torch.config import (
     SimRun,
 )
 from mpc_arpo_project_tpu_torch.rollout import continuous, discrete
+from mpc_arpo_project_tpu_torch import parallel
 
 __all__ = [
     "Noise",
@@ -42,4 +45,5 @@ __all__ = [
     "SimRun",
     "continuous",
     "discrete",
+    "parallel",
 ]

@@ -227,6 +227,33 @@ def noise_sequence_from_draws(engine: DiscreteEngine, draws) -> torch.Tensor:
     return scaled[idx]
 
 
+def make_noise_sequence_multi(engine: DiscreteEngine,
+                              generator: torch.Generator,
+                              hold_lengths) -> torch.Tensor:
+    """(T, B, 4) held-noise sequence with a PER-SCENARIO hold length
+    (``hold_lengths``: (B,) ints), so that a sweep over hold lengths runs as
+    one batch. Uniform hold lengths equal to the engine's give
+    ``make_noise_sequence``'s sequence from the same generator state."""
+    hold = np.asarray(hold_lengths, dtype=np.int64)
+    n_draws = engine.nsim // max(int(hold.min()), 1) + 2
+    draws = torch.randn((n_draws, hold.shape[0], 4),
+                        generator=generator, dtype=engine.dtype,
+                        device=generator.device)
+    return noise_sequence_multi_from_draws(engine, draws, hold)
+
+
+def noise_sequence_multi_from_draws(engine: DiscreteEngine, draws,
+                                    hold_lengths) -> torch.Tensor:
+    """``make_noise_sequence_multi`` from explicit standard-normal draws
+    (n_draws, B, 4): step t of scenario b takes draw t // hold[b]."""
+    draws = torch.as_tensor(draws, dtype=engine.dtype, device=engine.device)
+    scaled = draws * engine.sig_diag[None, None, :]
+    hold = torch.as_tensor(np.asarray(hold_lengths, dtype=np.int64),
+                           device=engine.device)
+    idx = torch.arange(engine.nsim, device=engine.device)[:, None] // hold
+    return torch.gather(scaled, 0, idx[:, :, None].expand(-1, -1, 4))
+
+
 class _Carry(NamedTuple):
     x_true: torch.Tensor  # (B, 4)
     xest: torch.Tensor  # (B, 6) fresh (unswapped) estimate

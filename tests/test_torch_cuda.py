@@ -25,7 +25,9 @@ runs on ``tick_inputs`` against its twin on the card: in fp64 the masks
 (alive, termination substep, success) equal and the states within 1e-9;
 in fp32 each scenario's states within 1e-4 of the fp32 twin or no farther
 from the fp64 twin than 4x the fp32 twin plus 1e-4. A B=8 continuous
-closed loop on the card equals the CPU's.
+closed loop on the card equals the CPU's. The sweeps: a world-1 NCCL
+``run_sweep`` on the card equals the CPU's ``chunk_stats`` on its chunks'
+draws, and a batch on the card gives its two halves' outcomes (fp64 'eig').
 """
 
 import numpy as np
@@ -35,14 +37,15 @@ import torch
 from mpc_arpo_project_tpu_torch.config import Noise, SimConditions
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
 from mpc_arpo_project_tpu_torch.ops import constraints, rk4_tick
-from mpc_arpo_project_tpu_torch.rollout import continuous
+from mpc_arpo_project_tpu_torch.parallel import mc, mesh as mesh_lib
+from mpc_arpo_project_tpu_torch.rollout import continuous, discrete
 from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
 from torch_helpers import (
     chunk_inputs, flagship_parts, pallas_inputs, radial_c_plant,
-    static_problem, tick_inputs)
+    static_problem, sweep_engine, tick_inputs)
 
 TOL = 1e-10
 pytestmark = pytest.mark.cuda
@@ -699,3 +702,53 @@ def test_cuda_continuous_rollout_from_the_engine_start(gpu):
     assert rk4_tick.rk4_tick.launches == n0 + 1
     assert out.x_true_ticks.shape == (3, 4, 4)
     assert torch.isfinite(out.x_true_ticks).all()
+
+
+def test_cuda_nccl_sweep_matches_cpu(gpu, tmp_path):
+    """``run_sweep`` over an NCCL process group of one rank (fp64 'eig',
+    16 scenarios in chunks of 8) launches ``eig_chunk`` and equals the
+    CPU's ``chunk_stats`` on the same chunks' draws: counts exact, the
+    final-distance sum within 1e-9."""
+    import torch.distributed as dist
+
+    engine = sweep_engine("eig", device=gpu)
+    cpu_engine = sweep_engine("eig")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = mesh_lib.make_mesh()
+        n0 = admm_eig.eig_chunk.launches
+        res = mc.run_sweep(engine, total=16, chunk=8, seed=7, mesh=mesh)
+        assert admm_eig.eig_chunk.launches > n0
+    finally:
+        dist.destroy_process_group()
+    st = [mc.sharded_stats_fn(cpu_engine, None)(
+        cpu_engine, mc._draw_chunk(engine, 7, ci, 8).cpu()) for ci in range(2)]
+    ref = {k: sum(getattr(s, k) for s in st) for k in mc.SweepStats._fields}
+    assert res["n"] == ref["n"] == 16
+    assert res["ctrl_usage"] == {"mpc": ref["n_mpc"],
+                                 "failsafe": ref["n_failsafe"],
+                                 "deadbeat": ref["n_deadbeat"]}
+    assert res["success_rate"] == ref["n_success"] / 16
+    assert res["mean_i_term"] == ref["sum_i_term"] / 16
+    np.testing.assert_allclose(res["mean_final_dist"],
+                               ref["sum_final_dist"] / 16, rtol=1e-9)
+
+
+def test_cuda_batch_composition(gpu):
+    """On the card, a batch of 16 (fp64 'eig') and its two halves on the
+    same draws: termination, success and controller codes per scenario
+    equal, and the final-distance sums within 1e-9."""
+    engine = sweep_engine("eig", device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(3)
+    noise = discrete.make_noise_sequence(engine, gen, 16)
+    w = discrete.rollout(engine, noise)
+    a = discrete.rollout(engine, noise[:, :8])
+    b = discrete.rollout(engine, noise[:, 8:])
+    for name in ("i_term", "success", "ctrl_seq"):
+        half = torch.cat([getattr(a, name), getattr(b, name)], -1)
+        assert torch.equal(getattr(w, name), half), name
+    fd = lambda o: float(mc._final_distance(o, engine.xr).sum())
+    np.testing.assert_allclose(fd(w), fd(a) + fd(b), rtol=1e-9)

@@ -21,6 +21,9 @@ def test_port_imports_no_jax():
         "from mpc_arpo_project_tpu_torch.models import cw, nonlinear\n"
         "from mpc_arpo_project_tpu_torch.rollout import continuous, discrete\n"
         "from mpc_arpo_project_tpu_torch.tools import kernel_probe\n"
+        "from mpc_arpo_project_tpu_torch.parallel import mc, mesh\n"
+        "from mpc_arpo_project_tpu_torch.utils import archive, guards, "
+        "timing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') or m == 'flax' "
         "or m == 'mpc_arpo_project_tpu' "

@@ -16,6 +16,8 @@ without JAX can use it too.
   Newton–Schulz refresh, taken from port solves on the CPU.
 * ``radial_c_plant`` and ``tick_inputs``: the radialC plant's tick
   constants and one tick's inputs of ``rk4_tick``.
+* ``SWEEP_SETTINGS`` and ``sweep_engine``: the small engines of the JAX
+  package's sweep tests (``tests/test_parallel.py``), built by the port.
 """
 
 import types
@@ -25,12 +27,13 @@ import pytest
 import torch
 
 from mpc_arpo_project_tpu_torch.config import (
-    Debris, FailsafeParams, MPCParams, SimConditions)
+    Debris, FailsafeParams, MPCParams, Noise, SimConditions)
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
 from mpc_arpo_project_tpu_torch.ops.host_synthesis import (
     discretize_np, synth_gains_np)
 from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
 from mpc_arpo_project_tpu_torch.ops.rk4_tick import TickPlant
+from mpc_arpo_project_tpu_torch.rollout import discrete
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -214,3 +217,28 @@ def tick_inputs(plant, B, seed, j=3):
     t = torch.as_tensor
     return (t(x), t(alive), t(i_term), t(idx % 10 == 7), t(disk(B)),
             t(disk(B)), t(draws)), j
+
+
+# the solver settings of the JAX package's sweep tests, by solve mode
+# (``tests/test_parallel.py``, ``tests/test_distributed.py``)
+SWEEP_SETTINGS = {
+    "chol": dict(max_iter=500),
+    "eig": dict(solve_mode="eig", max_iter=500, stall_exit_chunks=12,
+                stall_tighten_chunks=24, pallas_tile=4),
+}
+
+
+def sweep_configs(T_final=10.0):
+    """(sim, mpc, fail, debris) of the sweep tests' small engine (Nx=40,
+    radial, noise sigma 0.2 held 10 steps, debris box at (40, 0))."""
+    mpc, fail, debris = flagship_parts(Nx=40)
+    sim = sim_conditions(noise=Noise((0.2, 0.2), 10), T_final=T_final)
+    return sim, mpc, fail, debris
+
+
+def sweep_engine(mode, T_final=10.0, device="cpu", dtype=torch.float64):
+    """The port's build of the sweep tests' small engine in ``mode``."""
+    return discrete.build_engine(
+        *sweep_configs(T_final),
+        settings=admm.ADMMSettings(**SWEEP_SETTINGS[mode]), dtype=dtype,
+        device=device)
