@@ -72,15 +72,30 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    continuous radialC engine at B=1024 for 20 ticks. Its ``sweep:`` line
    holds scenarios/s, alive-solves/s, the outcome sums, the checks and the
    study's ratios;
-11. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+11. the drivers users run (``examples``, ``tools/status_mix.py`` of the
+   port): the mixed sweep's 10 engines (radial and in-track x R_input
+   scales 0.25-4) at B=1024 each, 10,240 scenarios in fp32 'eig' with its
+   ``--quick`` depth and solver cap (30 s, max_iter 500), through its
+   ``grid``, ``scenario_inputs`` and ``engine_stats`` (each engine must
+   launch ``eig_chunk``, alive statuses lie in 0..4, and an in-track
+   scenario with non-finite states must be counted diverged); the
+   status-mix tool's fp64 'chol' oracle arm on shard 0/8 of ``--config
+   ref --sigma 0.03 --runs 128`` (16 scenarios x 600 steps), held to the
+   JAX package's record of that shard in ``artifacts/status_mix`` (within
+   one docked scenario, 1% of the record's alive steps per status count
+   and 1% on the mean termination step; whether it is exact is printed),
+   and its fp32 'prod' arm on the same draws. Its ``drivers:`` line
+   follows the ``sweep:`` line;
+12. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
-   termination and ``done_iters``, and trajectories within 1e-6; for
-   'eig', 'pallas' and 'chol', and for 'chol' with ``estimator='kf'`` and
-   with ``synthesis='torch'``; and 5 ticks of the continuous loop in fp64
-   at B=8 ('eig' and 'chol'), which must also give the same termination
-   substeps and success;
-12. import check: no ``jax``, ``mpc_arpo_project_tpu`` or ``tools`` module
-   was loaded.
+   termination, success and ``done_iters``, and trajectories within 1e-6;
+   for 'eig', 'pallas' and 'chol', for 'chol' with ``estimator='kf'`` and
+   with ``synthesis='torch'``, and for the mixed sweep's noisy offset-free
+   in-track engine ('eig'); and 5 ticks of the continuous loop in fp64 at
+   B=8 ('eig' and 'chol'), which must also give the same termination
+   substeps;
+13. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
+   ``examples`` module was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
 and Newton–Schulz kernel call of phase 3's comparisons (inputs, keywords,
@@ -88,7 +103,7 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the ``sweep:`` line and the kernels' JSON line, then
+Prints the ``sweep:`` and ``drivers:`` lines and the kernels' JSON line, then
 ``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
@@ -107,9 +122,10 @@ from functools import partial
 
 import numpy as np
 
-# the tests' helpers (the inputs of the tick kernel's check); they import
-# nothing of JAX
-TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the tests' helpers (the inputs of the tick kernel's check, the in-track
+# agreement's run); they import nothing of JAX
+TESTS = os.path.join(ROOT, "tests")
 
 # H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
 # beside every time): fp32 and fp64 on the CUDA cores, HBM3 bandwidth
@@ -1295,8 +1311,17 @@ def small_agreement(seed, solve_mode, **engine_kw):
             draws = rng.standard_normal((eng.nsim // eng.noise_rep + 2, 8, 4))
         ns = discrete.noise_sequence_from_draws(eng, draws)
         outs.append(discrete.rollout(eng, ns))
+    _agree(label, outs)
+
+
+def _agree(label, outs):
+    """A B=8 run on the card against the same run on the CPU: statuses,
+    controller codes, termination, success and ``done_iters`` equal,
+    trajectories within 1e-6."""
+    import torch
+
     g, c = outs
-    for name in ("status", "ctrl_seq", "i_term", "done_iters"):
+    for name in ("status", "ctrl_seq", "i_term", "success", "done_iters"):
         if not torch.equal(getattr(g, name).cpu(), getattr(c, name)):
             raise AssertionError(f"small agreement ({label}): {name} "
                                  f"differs\n{getattr(g, name).cpu()}\n"
@@ -1305,8 +1330,9 @@ def small_agreement(seed, solve_mode, **engine_kw):
     if dx > 1e-6:
         raise AssertionError(f"small agreement ({label}): x_true differs "
                              f"by {dx}")
-    log(f"  [{label}] 4 steps, B=8, fp64: statuses, controller codes, "
-        f"termination and done_iters equal; max |x_true diff| = {dx:.3e}")
+    log(f"  [{label}] {c.status.shape[0]} steps, B={c.status.shape[1]}, "
+        f"fp64: statuses, controller codes, termination, success and "
+        f"done_iters equal; max |x_true diff| = {dx:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1878,11 +1904,188 @@ def sweep_phase(eig_engine, seed):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# the drivers users run (``mpc_arpo_project_tpu_torch/examples``, the
+# status-mix tool)
+# ---------------------------------------------------------------------------
+
+# the mixed sweep at its default grid and width, with its --quick depth
+DRIVERS_B = 1024
+# the status-mix cell of the JAX package's recorded fp64 oracle shard
+# (16 scenarios x 600 steps of the reference success-rate configuration)
+ORACLE_ARGS = ["--config", "ref", "--sigma", "0.03", "--runs", "128",
+               "--shard", "0/8"]
+ORACLE_RECORD = os.path.join(ROOT, "artifacts", "status_mix",
+                             "ref_s0.03_oracle_shard0of8.json")
+
+
+def _status_line(r):
+    """The numbers of a status-mix arm that the phase holds and prints."""
+    return {k: r[k] for k in ("counts", "n_success", "alive_steps",
+                              "mean_i_term", "ctrl_usage", "mix")}
+
+
+def drivers_phase():
+    """The drivers on the card: (a) the mixed sweep's 10 engines (radial
+    and in-track x R_input 0.25-4) at B=1024 each through its ``grid``,
+    ``scenario_inputs`` and ``engine_stats``, with its ``--quick`` depth
+    and solver cap; (b) the status-mix tool's fp64 'oracle' arm on the
+    shard of the JAX package's recorded oracle run, held to that record;
+    (c) its fp32 'prod' arm on the same draws. Every kernel count is set to
+    0 just before each run and read just after; returns the counts summed
+    over the runs and the report."""
+    import torch
+    from mpc_arpo_project_tpu_torch.examples import mixed_sweep_10k as ms
+    from mpc_arpo_project_tpu_torch.ops import _build
+    from mpc_arpo_project_tpu_torch.parallel import mc
+    from mpc_arpo_project_tpu_torch.rollout import discrete
+    from mpc_arpo_project_tpu_torch.tools import status_mix
+
+    counters = _counters()
+    launches = {}
+
+    def start():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def stop(t0):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _read_counters(counters).items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return wall, got
+
+    # a. the mixed sweep at full width
+    settings = ms.settings(quick=True)
+    cells = ms.grid(ms.RU_SCALES, quick=True)
+    rng = np.random.RandomState(ms.SEED)
+    engines, totals = [], {}
+    build_s = 0.0
+    t_all = time.perf_counter()
+    for gi, c in enumerate(cells):
+        t0 = start()
+        engine = discrete.build_engine(c.sim, c.mpc, c.fail, c.debris,
+                                       settings=settings, dtype=torch.float32,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        build_s += build
+        x0b, hold, is_rej = ms.scenario_inputs(rng, c.orient, c.sim.x0,
+                                               DRIVERS_B)
+        r, out = ms.engine_stats(engine, ms.engine_noise(engine, gi, hold),
+                                 x0b, is_rej)
+        wall, got = stop(t0)
+        if not got.get("eig_chunk"):
+            raise AssertionError(f"engine {gi} ({c.orient}, Ru*{c.w}) "
+                                 f"launched no eig_chunk: {got}")
+        alive = out.ctrl_seq > 0
+        st = out.status[alive]
+        if not ((st >= 0) & (st <= 4)).all():
+            raise AssertionError(f"engine {gi}: alive statuses outside 0..4")
+        div = ~torch.isfinite(mc._final_distance(out, engine.xr))
+        if int(div.sum()) != r["n_diverged"]:
+            raise AssertionError(f"engine {gi}: diverged count")
+        bad = ~torch.isfinite(out.x_true).all(-1).all(0) & ~div
+        if c.orient == "in-track" and bool(bad.any()):
+            raise AssertionError(
+                f"engine {gi} (in-track, Ru*{c.w}): {int(bad.sum())} "
+                "scenarios with non-finite states are not counted diverged")
+        nok = DRIVERS_B - int(r["n_diverged"])
+        row = dict(orient=c.orient, ru_scale=c.w, steps=engine.nsim,
+                   success=int(r["n_success"]),
+                   mean_final_dist=r["sum_final_dist"] / max(nok, 1),
+                   diverged=int(r["n_diverged"]),
+                   solved=int(r["n_solved"]), max_iter=int(r["n_maxiter"]),
+                   pinf=int(r["n_pinf"]), alive_steps=int(r["alive_steps"]),
+                   admm_iters=int(r["total_iters"]), wall_s=wall,
+                   build_s=build, launches=got)
+        log(f"  [mixed sweep {gi + 1}/{len(cells)}] " + json.dumps(row))
+        engines.append(row)
+        for k, v in r.items():
+            totals[k] = totals.get(k, 0.0) + v
+        del out, engine
+    wall = time.perf_counter() - t_all
+    n = DRIVERS_B * len(cells)
+    ndiv = int(totals["n_diverged"])
+    sweep = dict(
+        engines=len(cells), batch=DRIVERS_B, scenarios=n,
+        steps=cells[0].sim.nsim, max_iter=settings.max_iter,
+        solve_mode=settings.solve_mode, dtype="float32", wall_s=wall,
+        engine_build_s=build_s, sims_per_s=n / wall,
+        alive_steps=int(totals["alive_steps"]),
+        alive_steps_per_s=totals["alive_steps"] / wall,
+        success=int(totals["n_success"]), diverged=ndiv,
+        mean_final_dist=totals["sum_final_dist"] / max(n - ndiv, 1),
+        mean_i_term=totals["sum_i_term"] / n,
+        status_counts=dict(SOLVED=int(totals["n_solved"]),
+                           MAX_ITER=int(totals["n_maxiter"]),
+                           PINF=int(totals["n_pinf"])))
+    log("  [mixed sweep] " + json.dumps(sweep))
+
+    # b. the fp64 oracle against the JAX package's record of the same shard
+    os.makedirs(_build.BUILD, exist_ok=True)
+    out_json = os.path.join(_build.BUILD, "status_mix.json")
+    t0 = start()
+    oracle = status_mix.run(ORACLE_ARGS + ["--arm", "oracle", "--device",
+                                           "cuda", "--out", out_json])
+    wall_o, got_o = stop(t0)
+    with open(ORACLE_RECORD) as fh:
+        record = json.load(fh)
+    ref, got = record["arms"]["oracle"], oracle["arms"]["oracle"]
+    if oracle["shard"] != record["shard"] or oracle["nsim"] != record["nsim"]:
+        raise AssertionError(f"shard {oracle['shard']} x {oracle['nsim']} "
+                             f"steps, record {record['shard']}")
+    cmp = dict(port=_status_line(got), record=_status_line(ref))
+    exact = all(cmp["port"][k] == cmp["record"][k]
+                for k in ("counts", "n_success", "alive_steps",
+                          "mean_i_term", "ctrl_usage"))
+    tol = 0.01 * ref["alive_steps"]
+    off = {k: got["counts"][k] - v for k, v in ref["counts"].items()
+           if abs(got["counts"][k] - v) > tol}
+    if (abs(got["n_success"] - ref["n_success"]) > 1 or off
+            or abs(got["mean_i_term"] - ref["mean_i_term"])
+            > 0.01 * ref["mean_i_term"]):
+        raise AssertionError(f"the card's oracle leaves the record: "
+                             f"{json.dumps(cmp)}")
+    oracle_rep = dict(args=ORACLE_ARGS, scenarios=record["shard"]["hi"]
+                      - record["shard"]["lo"], steps=record["nsim"],
+                      exact=exact, wall_s=wall_o, record_wall_s_cpu=ref["wall_s"],
+                      launches=got_o, **cmp)
+    log("  [oracle] " + json.dumps(oracle_rep))
+
+    # c. production on the same draws
+    t0 = start()
+    prod = status_mix.run(ORACLE_ARGS + ["--arm", "prod", "--device", "cuda",
+                                         "--out", out_json])
+    wall_p, got_p = stop(t0)
+    p = prod["arms"]["prod"]
+    if not got_p.get("eig_chunk"):
+        raise AssertionError(f"the prod arm launched no eig_chunk: {got_p}")
+    prod_rep = dict(wall_s=wall_p, launches=got_p, **_status_line(p),
+                    n_success_oracle=got["n_success"],
+                    exit_residuals_over_tol=p["exit_residuals_over_tol"])
+    log("  [prod] " + json.dumps(prod_rep))
+    return launches, dict(mixed_sweep=dict(sweep, per_engine=engines),
+                          oracle=oracle_rep, prod=prod_rep)
+
+
+def in_track_agreement(seed):
+    """4 fp64 control steps of the mixed sweep's noisy offset-free in-track
+    engine ('eig') at B=8: the card (kernels) against the CPU (twins)."""
+    sys.path.insert(0, TESTS)
+    from torch_helpers import in_track_rollout
+
+    _agree("in-track eig", [in_track_rollout(d, seed) for d in ("cuda", "cpu")])
+
+
 def _foreign_modules():
     return sorted(m for m in sys.modules
-                  if m in ("jax", "mpc_arpo_project_tpu", "tools")
+                  if m in ("jax", "mpc_arpo_project_tpu", "tools", "examples")
                   or m.startswith(("jax.", "mpc_arpo_project_tpu.",
-                                   "tools.")))
+                                   "tools.", "examples.")))
 
 
 def main() -> int:
@@ -1980,7 +2183,16 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     log(f"  sweeps done at {time.perf_counter() - t_start:.1f} s")
 
-    # 11. small end-to-end agreement, card against CPU
+    # 11. the drivers: the mixed sweep, the oracle shard and production on it
+    t0 = time.perf_counter()
+    counts, drivers_report = drivers_phase()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    drivers_report["wall_s"] = time.perf_counter() - t0
+    log(f"  drivers done at {time.perf_counter() - t_start:.1f} s "
+        f"(the phase {drivers_report['wall_s']:.1f} s)")
+
+    # 12. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(4, "pallas")
     small_agreement(5, "chol")
@@ -1988,8 +2200,9 @@ def main() -> int:
     small_agreement(7, "chol", synthesis="torch")
     continuous_agreement(9, "eig")
     continuous_agreement(10, "chol")
+    in_track_agreement(12)
 
-    # 12. import check
+    # 13. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2000,6 +2213,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print("sweep: " + json.dumps(sweep_report))
+    print("drivers: " + json.dumps(drivers_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

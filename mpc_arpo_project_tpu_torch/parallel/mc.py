@@ -171,16 +171,16 @@ def _default_mesh(mesh):
     return mesh
 
 
-def _chunk_generator(engine, seed: int, ci: int) -> torch.Generator:
+def chunk_generator(engine, seed: int, ci: int) -> torch.Generator:
     """The generator of chunk ``ci``'s draws, on the engine's device, seeded
-    from ``(seed, ci)`` alone."""
+    from ``(seed, ci)`` alone: the port's ``fold_in(key(seed), ci)``."""
     base = engine.base if isinstance(engine, cont.ContinuousEngine) else engine
     s = np.random.SeedSequence([seed, ci]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=base.device).manual_seed(int(s) >> 1)
 
 
 def _draw_chunk(engine, seed: int, ci: int, chunk: int) -> torch.Tensor:
-    gen = _chunk_generator(engine, seed, ci)
+    gen = chunk_generator(engine, seed, ci)
     if isinstance(engine, cont.ContinuousEngine):
         return cont.make_noise_draws(engine, gen, chunk)
     return discrete.make_noise_sequence(engine, gen, chunk)
@@ -259,13 +259,15 @@ def run_sweep(
 
 def success_rate_study(
     sim, mpc, fail, debris, n_runs: int, chunk: int, seed: int, mesh=None,
-    **engine_kw
+    checkpoint_path: Optional[str] = None, **engine_kw
 ) -> dict:
     """The success-rate MC (the reference's ``success_rates_test.py``),
-    batched: N offset-free noisy runs, count successes. ``engine_kw`` goes
-    to ``build_engine`` (``device``, ``dtype``, ``settings``, ...)."""
+    batched: N offset-free noisy runs, count successes, resumable from
+    ``checkpoint_path`` as ``run_sweep`` is. ``engine_kw`` goes to
+    ``build_engine`` (``device``, ``dtype``, ``settings``, ...)."""
     engine = discrete.build_engine(sim, mpc, fail, debris, **engine_kw)
-    return run_sweep(engine, n_runs, chunk, seed, mesh=mesh)
+    return run_sweep(engine, n_runs, chunk, seed, mesh=mesh,
+                     checkpoint_path=checkpoint_path)
 
 
 def disturbance_rejection_study_fused(
@@ -345,7 +347,7 @@ def disturbance_rejection_study(
         e_norej = discrete.build_engine(s_norej, mpc, fail, debris, **engine_kw)
         # common random numbers: same noise for both arms
         noise_seq = discrete.make_noise_sequence(
-            e_rej, _chunk_generator(e_rej, seed, i), runs_per_setting)
+            e_rej, chunk_generator(e_rej, seed, i), runs_per_setting)
         st_rej = sharded_stats_fn(e_rej, mesh)(e_rej, noise_seq)
         st_norej = sharded_stats_fn(e_norej, mesh)(e_norej, noise_seq)
         ratios.append(st_rej.sum_final_dist

@@ -220,11 +220,13 @@ def make_noise_sequence(engine: DiscreteEngine, generator: torch.Generator,
 def noise_sequence_from_draws(engine: DiscreteEngine, draws) -> torch.Tensor:
     """Build the (T, B, 4) sequence from explicit standard-normal draws
     (n_draws, B, 4), numpy or torch — lets tests feed both packages the same
-    noise."""
+    noise. A step past the last draw takes the last one, as the JAX
+    package's clamped gather does: a noiseless engine (hold 1, zero sigma)
+    accepts the draws of any hold length."""
     draws = torch.as_tensor(draws, dtype=engine.dtype, device=engine.device)
     scaled = draws * engine.sig_diag[None, None, :]
     idx = torch.arange(engine.nsim, device=engine.device) // engine.noise_rep
-    return scaled[idx]
+    return scaled[idx.clamp(max=draws.shape[0] - 1)]
 
 
 def make_noise_sequence_multi(engine: DiscreteEngine,

@@ -25,7 +25,8 @@ runs on ``tick_inputs`` against its twin on the card: in fp64 the masks
 (alive, termination substep, success) equal and the states within 1e-9;
 in fp32 each scenario's states within 1e-4 of the fp32 twin or no farther
 from the fp64 twin than 4x the fp32 twin plus 1e-4. A B=8 continuous
-closed loop on the card equals the CPU's. The sweeps: a world-1 NCCL
+closed loop on the card equals the CPU's, and so does the mixed sweep's
+noisy offset-free in-track discrete engine ('eig'). The sweeps: a world-1 NCCL
 ``run_sweep`` on the card equals the CPU's ``chunk_stats`` on its chunks'
 draws, and a batch on the card gives its two halves' outcomes (fp64 'eig').
 """
@@ -44,8 +45,8 @@ from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
 from torch_helpers import (
-    chunk_inputs, flagship_parts, pallas_inputs, radial_c_plant,
-    static_problem, sweep_engine, tick_inputs)
+    chunk_inputs, flagship_parts, in_track_rollout, pallas_inputs,
+    radial_c_plant, static_problem, sweep_engine, tick_inputs)
 
 TOL = 1e-10
 pytestmark = pytest.mark.cuda
@@ -752,3 +753,17 @@ def test_cuda_batch_composition(gpu):
         assert torch.equal(getattr(w, name), half), name
     fd = lambda o: float(mc._final_distance(o, engine.xr).sum())
     np.testing.assert_allclose(fd(w), fd(a) + fd(b), rtol=1e-9)
+
+
+def test_cuda_in_track_rollout_matches_cpu(gpu):
+    """The mixed sweep's in-track engine in fp64 'eig' at B=8 for 4 steps
+    on the card (``eig_chunk``) and on the CPU (its twin), on the same
+    inputs: statuses, codes, termination, success and done_iters equal,
+    trajectories within 1e-6."""
+    n0 = admm_eig.eig_chunk.launches
+    g = in_track_rollout(gpu, 12)
+    assert admm_eig.eig_chunk.launches > n0
+    c = in_track_rollout("cpu", 12)
+    for name in ("status", "ctrl_seq", "i_term", "success", "done_iters"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert float((g.x_true.cpu() - c.x_true).abs().max()) <= 1e-6

@@ -281,7 +281,7 @@ def test_disturbance_study_per_setting():
         sim_norej, sim_rej, mpc, fail, debris, [10], 4, 5, **kw)
     e_rej = td.build_engine(sim_rej, mpc, fail, debris, **kw)
     e_norej = td.build_engine(sim_norej, mpc, fail, debris, **kw)
-    ns = td.make_noise_sequence(e_rej, tmc._chunk_generator(e_rej, 5, 0), 4)
+    ns = td.make_noise_sequence(e_rej, tmc.chunk_generator(e_rej, 5, 0), 4)
     sums = [float(tmc.chunk_stats(e, ns).sum_final_dist)
             for e in (e_rej, e_norej)]
     assert list(nls) == [10]

@@ -18,6 +18,9 @@ without JAX can use it too.
   constants and one tick's inputs of ``rk4_tick``.
 * ``SWEEP_SETTINGS`` and ``sweep_engine``: the small engines of the JAX
   package's sweep tests (``tests/test_parallel.py``), built by the port.
+* ``in_track_rollout``: the mixed sweep's noisy offset-free in-track
+  engine rolled out from seeded per-scenario inputs on a given device
+  (the card-against-CPU check of the in-track loop).
 """
 
 import types
@@ -242,3 +245,25 @@ def sweep_engine(mode, T_final=10.0, device="cpu", dtype=torch.float64):
         *sweep_configs(T_final),
         settings=admm.ADMMSettings(**SWEEP_SETTINGS[mode]), dtype=dtype,
         device=device)
+
+
+def in_track_rollout(device, seed, B=8, T_final=2.0):
+    """The mixed sweep's noisy offset-free in-track engine (R_input scale
+    1, its ``--quick`` solver settings in 'eig', fp64) on ``device``,
+    rolled out for ``T_final`` s (4 control steps by default) from the
+    per-scenario x0, hold lengths, offset-free switches and numpy draws of
+    ``np.random.RandomState(seed)``: the same inputs on every device."""
+    from mpc_arpo_project_tpu_torch.examples import mixed_sweep_10k as ms
+
+    cell = next(c for c in ms.grid((1.0,), T_final=T_final)
+                if c.orient == "in-track")
+    eng = discrete.build_engine(cell.sim, cell.mpc, cell.fail, cell.debris,
+                                settings=ms.settings(quick=True),
+                                dtype=torch.float64, device=device)
+    rng = np.random.RandomState(seed)
+    x0b, hold, is_rej = ms.scenario_inputs(rng, "in-track", cell.sim.x0, B)
+    draws = rng.standard_normal((eng.nsim // int(hold.min()) + 2, B, 4))
+    noise = discrete.noise_sequence_multi_from_draws(eng, draws, hold)
+    kw = dict(dtype=eng.dtype, device=eng.device)
+    return discrete.rollout(eng, noise, x0b=torch.as_tensor(x0b, **kw),
+                            is_reject_b=torch.as_tensor(is_rej, **kw))
