@@ -86,7 +86,33 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    and 1% on the mean termination step; whether it is exact is printed),
    and its fp32 'prod' arm on the same draws. Its ``drivers:`` line
    follows the ``sweep:`` line;
-12. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+12. the oracle tools (``tools/continuous_fullscale.py``,
+   ``tools/deviation_bench.py``, the status-mix refsim arm of the port):
+   (a) ``fullscale_record`` of main path 4's engine (radialC, fp32 'eig',
+   max_iter 1000) uncut, T_final 300 s (600 ticks, 300,000 substeps a
+   scenario) at B=1024: finite states, and each scenario's controller
+   codes nonzero exactly on the ticks that started before its termination
+   substep; then the command line's own engine ('chol' fp32, B=8) beside
+   the JAX package's TPU record ``artifacts/contC_tpu_r5.json`` (other
+   draws: printed, not held); (b) the port's fp64 'chol' engine at T=300 s
+   on the card against the NumPy oracle ``simulate_continuous`` on the JAX
+   tool's ``RandomState(11)`` draws: termination substep, controller codes
+   and success equal and the tick trajectory within 1e-6 up to the
+   terminating tick; after it the engine holds the state at the
+   terminating substep and the oracle the tick's start, in the JAX package
+   too, so the rows after it may differ (ROADMAP section 3); (c)
+   ``deviation_bench.replay`` of the 60 QPs of ``artifacts/devseq_r5.npz``
+   at production settings in 'eig' fp32, 'pallas' fp32 and 'chol' fp64
+   (each must launch its kernels), beside the JAX package's TPU v5e
+   numbers, and
+   the first 3 'chol' steps on the CPU within 1e-9; (d) the refsim arm on
+   the drivers phase's shard, held to the JAX package's record
+   ``artifacts/status_mix/ref_s0.03_refsim_shard0of8.json`` under the
+   rule of phase 11's oracle arm. The host oracles of (b) and (d) run
+   from the start of the phase in two child processes started with
+   ``spawn``, without CUDA and on one thread each. Its ``oracle:`` line
+   follows the ``drivers:`` line;
+13. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination, success and ``done_iters``, and trajectories within 1e-6;
    for 'eig', 'pallas' and 'chol', for 'chol' with ``estimator='kf'`` and
@@ -94,7 +120,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    in-track engine ('eig'); and 5 ticks of the continuous loop in fp64 at
    B=8 ('eig' and 'chol'), which must also give the same termination
    substeps;
-13. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
+14. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
    ``examples`` module was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -103,8 +129,8 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the ``sweep:`` and ``drivers:`` lines and the kernels' JSON line, then
-``{"ok": true, ...}`` as the last line.
+Prints the ``sweep:``, ``drivers:`` and ``oracle:`` lines and the
+kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
 """
@@ -1925,6 +1951,23 @@ def _status_line(r):
                               "mean_i_term", "ctrl_usage", "mix")}
 
 
+def _held_to_record(got, ref):
+    """The drivers phase's rule for a status-mix arm against the JAX
+    package's record: within one docked scenario, and 1% of the record's
+    alive steps per status count and on the mean termination step. Returns
+    (holds, exact)."""
+    exact = all(got[k] == ref[k] for k in ("counts", "n_success",
+                                           "alive_steps", "mean_i_term",
+                                           "ctrl_usage"))
+    tol = 0.01 * ref["alive_steps"]
+    off = [k for k, v in ref["counts"].items()
+           if abs(got["counts"].get(k, 0) - v) > tol]
+    holds = (abs(got["n_success"] - ref["n_success"]) <= 1 and not off
+             and abs(got["mean_i_term"] - ref["mean_i_term"])
+             <= 0.01 * ref["mean_i_term"])
+    return holds, exact
+
+
 def drivers_phase():
     """The drivers on the card: (a) the mixed sweep's 10 engines (radial
     and in-track x R_input 0.25-4) at B=1024 each through its ``grid``,
@@ -2039,15 +2082,8 @@ def drivers_phase():
         raise AssertionError(f"shard {oracle['shard']} x {oracle['nsim']} "
                              f"steps, record {record['shard']}")
     cmp = dict(port=_status_line(got), record=_status_line(ref))
-    exact = all(cmp["port"][k] == cmp["record"][k]
-                for k in ("counts", "n_success", "alive_steps",
-                          "mean_i_term", "ctrl_usage"))
-    tol = 0.01 * ref["alive_steps"]
-    off = {k: got["counts"][k] - v for k, v in ref["counts"].items()
-           if abs(got["counts"][k] - v) > tol}
-    if (abs(got["n_success"] - ref["n_success"]) > 1 or off
-            or abs(got["mean_i_term"] - ref["mean_i_term"])
-            > 0.01 * ref["mean_i_term"]):
+    holds, exact = _held_to_record(got, ref)
+    if not holds:
         raise AssertionError(f"the card's oracle leaves the record: "
                              f"{json.dumps(cmp)}")
     oracle_rep = dict(args=ORACLE_ARGS, scenarios=record["shard"]["hi"]
@@ -2070,6 +2106,286 @@ def drivers_phase():
     log("  [prod] " + json.dumps(prod_rep))
     return launches, dict(mixed_sweep=dict(sweep, per_engine=engines),
                           oracle=oracle_rep, prod=prod_rep)
+
+
+# ---------------------------------------------------------------------------
+# the oracle tools (``tools/continuous_fullscale.py``,
+# ``tools/deviation_bench.py`` and the status-mix refsim arm of the port)
+# ---------------------------------------------------------------------------
+
+# the full-horizon continuous batch: radialC at the reference's T_final,
+# 600 ticks of 500 substeps, at the width of every other cell
+FULLSCALE_T = 300.0
+FULLSCALE_B = 1024
+ARTIFACTS = os.path.join(ROOT, "artifacts")
+# the JAX package's TPU v5e record of its production run (B=8, 'chol' fp32)
+CONTC_RECORD = os.path.join(ARTIFACTS, "contC_tpu_r5.json")
+# the 60 QPs that the JAX tool recorded from the oracle closed loop
+DEVSEQ = os.path.join(ARTIFACTS, "devseq_r5.npz")
+# the JAX package's refsim arm on the drivers phase's shard
+REFSIM_RECORD = os.path.join(ARTIFACTS, "status_mix",
+                             "ref_s0.03_refsim_shard0of8.json")
+# the JAX package's TPU v5e replays of the same sequence in 'eig' fp32: at
+# production settings (``BASELINE.md:457``), and in the fp32 accuracy mode
+# (``--accurate-f32``, ``artifacts/deviation_eig_f32_tpu_r5b.log``, whose
+# line reads "accurate=False" because it prints ``--accurate``)
+DEVIATION_TPU = {"eig": dict(
+    production=dict(converged=dict(n=60, max=1.6e-1, median=2.1e-2)),
+    accurate_f32=dict(converged=dict(n=2, max=5.294e-06, median=5.273e-06),
+                      max_iter=dict(n=58, max=5.085e-04,
+                                    median=1.146e-05)))}
+
+
+@contextlib.contextmanager
+def _environ(**changes):
+    """``os.environ`` with ``changes`` for the block (what a process
+    started in it inherits)."""
+    old = {k: os.environ.get(k) for k in changes}
+    os.environ.update(changes)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _check_bookkeeping(engine, out):
+    """Finite states of the expected shapes, and each scenario's recorded
+    controller codes nonzero exactly on the ticks that started alive: tick
+    j (row j-1 of ``ctrl_seq``) iff j * n_sub <= i_term_sub."""
+    import torch
+
+    B = out.i_term_sub.shape[0]
+    for name, width in (("x_true_ticks", 4), ("x_est", 6), ("ctrls", 2)):
+        v = getattr(out, name)
+        if tuple(v.shape) != (engine.n_ticks + 1, B, width):
+            raise AssertionError(f"{name} shape {tuple(v.shape)}")
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"non-finite {name}")
+    ticks = torch.arange(1, engine.n_ticks, device=out.ctrl_seq.device)
+    started = ticks[:, None] * engine.n_sub <= out.i_term_sub[None, :].long()
+    if not torch.equal(out.ctrl_seq > 0, started):
+        bad = int(((out.ctrl_seq > 0) != started).any(0).sum())
+        raise AssertionError(f"{bad} scenarios' ctrl_seq disagrees with "
+                             "their termination substep")
+    status = out.status
+    if not (((status >= 0) & (status <= 4)) == started).all():
+        raise AssertionError("a status outside 0..4 on an alive tick, or "
+                             "not -1 on a dead one")
+
+
+def _fullscale_part(start, stop, card):
+    """(a): main path 4's engine uncut at B=1024, then the command line's
+    own engine at B=8 beside the JAX package's TPU record."""
+    import torch
+    from mpc_arpo_project_tpu_torch.rollout import continuous
+    from mpc_arpo_project_tpu_torch.tools import continuous_fullscale as cf
+
+    engine = radial_c(FULLSCALE_T, "cuda", torch.float32, "eig")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    draws = continuous.make_noise_draws(engine, gen, FULLSCALE_B)
+    t0 = start()
+    rec, out = cf.fullscale_record(engine, draws, seg=100)
+    _, got = stop(t0)
+    _check_bookkeeping(engine, out)
+    if (got.get("rk4_tick") != engine.n_ticks - 1 or not got.get("eig_chunk")
+            or any(rec["launches"][k] != got[k] for k in rec["launches"])):
+        raise AssertionError(f"fullscale launches: record {rec['launches']}, "
+                             f"counters {got}, {engine.n_ticks - 1} ticks")
+    i_term = out.i_term_sub.double().cpu()
+    n_total = rec["substeps_per_scenario"]
+    alive = rec["alive_ticks"]
+    fullscale = dict(
+        config="radialC, fp32 'eig', max_iter 1000 (main path 4's engine)",
+        device=card, batch=FULLSCALE_B, ticks=engine.n_ticks - 1,
+        substeps_per_scenario=n_total, wall_s=rec["wall_s"],
+        scenario_substeps_per_s=rec["substeps_per_s"],
+        docked_share=float(out.success.float().mean()),
+        terminated_share=float((i_term < n_total).float().mean()),
+        i_term_sub_quartiles=torch.quantile(i_term, torch.tensor(
+            [0.0, 0.25, 0.5, 0.75, 1.0], dtype=torch.float64)).tolist(),
+        alive_ticks=alive,
+        controller_mix_alive={k: v / alive
+                              for k, v in rec["ctrl_usage"].items()},
+        status_mix_alive={k: v / alive
+                          for k, v in rec["status_mix_alive"].items()},
+        ctrl_usage=rec["ctrl_usage"], launches=got)
+    log("  [fullscale] " + json.dumps(fullscale))
+    del out, draws, engine
+
+    engine = cf.build(FULLSCALE_T, torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws = continuous.make_noise_draws(engine, gen, 8)
+    t0 = start()
+    cli, _ = cf.fullscale_record(engine, draws, seg=100)
+    _, got = stop(t0)
+    with open(CONTC_RECORD) as fh:
+        tpu = json.load(fh)
+    outcome = ("alive_ticks", "i_term_sub", "success", "ctrl_usage",
+               "status_mix_alive")
+    cli_rep = dict(
+        port={k: cli[k] for k in outcome + ("wall_s", "substeps_per_s",
+                                            "device")},
+        tpu_record={k: tpu[k] for k in outcome + ("wall_s", "backend")},
+        launches=got)
+    log("  [fullscale cli] " + json.dumps(cli_rep))
+    return fullscale, cli_rep
+
+
+def _replay_part(start, stop):
+    """(c): the 60 recorded QPs in 'eig' fp32, 'pallas' fp32 and 'chol'
+    fp64 on the card, each launching its kernels; the first 3 'chol' steps
+    also on the CPU."""
+    import torch
+    from mpc_arpo_project_tpu_torch.tools import deviation_bench as db
+
+    with np.load(DEVSEQ) as f:
+        seq = [f[k] for k in ("l", "u", "coeffs", "u_true")]
+    kernels = {"eig": ("eig_chunk",), "pallas": ("admm_chunk", "ns_fused"),
+               "chol": ()}
+    replays = {}
+    for mode, dtype in (("eig", torch.float32), ("pallas", torch.float32),
+                        ("chol", torch.float64)):
+        prob, settings = db.prepare(mode, dtype, "cuda")
+        t0 = start()
+        devs, st = db.replay(prob, settings, *seq)
+        wall, got = stop(t0)
+        if not all(got.get(k) for k in kernels[mode]):
+            raise AssertionError(f"the '{mode}' replay launched {got}")
+        if not np.isfinite(devs).all():
+            raise AssertionError(f"the '{mode}' replay: non-finite control")
+        replays[mode] = dict(dtype=str(dtype)[6:], wall_s=wall, launches=got,
+                             **db.summary(devs, st),
+                             tpu_v5e=DEVIATION_TPU.get(mode))
+        log(f"  [replay {mode}] " + json.dumps(replays[mode]))
+    cdevs, cst = db.replay(*db.prepare("chol", torch.float64, "cpu"),
+                           *(a[:3] for a in seq))
+    diff = np.abs(devs[:3] - cdevs)
+    if not (np.array_equal(st[:3], cst) and (diff <= 1e-9).all()):
+        raise AssertionError(f"'chol' fp64 replay: card {devs[:3]} {st[:3]}, "
+                             f"CPU {cdevs} {cst}")
+    replays["chol"]["card_vs_cpu_3_steps_max_diff"] = float(diff.max())
+    return replays
+
+
+def _parity_part(start, stop, engine, draws, runo, wall_oracle):
+    """(b): the fp64 engine on the card against the oracle's run: the JAX
+    tool's criteria up to the terminating tick, and any later miss starting
+    exactly there (ROADMAP section 3)."""
+    from mpc_arpo_project_tpu_torch.tools import continuous_fullscale as cf
+
+    t0 = start()
+    par = cf.parity_record(engine, draws, runo, wall_oracle, seg=100)
+    _, par["launches"] = stop(t0)
+    log("  [parity] " + json.dumps(par))
+    if not (par["i_term_sub_port"] == par["i_term_sub_oracle"]
+            and par["ctrl_seq_equal"]
+            and par["success_port"] == par["success_oracle"]
+            and par["tick_traj_max_abs_dev_to_termination"] <= 1e-6):
+        raise AssertionError("the T=300 s parity misses the JAX tool's "
+                             "criteria: " + json.dumps(par))
+    j_term = par["i_term_sub_oracle"] // engine.n_sub
+    if not (par["tick_traj_atol_1e-6_ok"]
+            or par["first_tick_row_over_1e-6"] == j_term + 1):
+        raise AssertionError("the tick trajectory departs before the "
+                             "terminating tick: " + json.dumps(par))
+    if not par["launches"].get("rk4_tick"):
+        raise AssertionError(f"the parity run launched {par['launches']}")
+    return par
+
+
+def _refsim_part(summary):
+    """(d): the refsim arm's summary against the JAX package's record of
+    the shard."""
+    with open(REFSIM_RECORD) as fh:
+        record = json.load(fh)
+    got, ref = summary["arms"]["refsim"], record["arms"]["refsim"]
+    if (summary["shard"], summary["nsim"]) != (record["shard"],
+                                               record["nsim"]):
+        raise AssertionError(f"refsim shard {summary['shard']}, record "
+                             f"{record['shard']}")
+    holds, exact = _held_to_record(got, ref)
+    refsim = dict(args=ORACLE_ARGS, exact=exact, wall_s=got["wall_s"],
+                  record_wall_s_cpu=ref["wall_s"], port=_status_line(got),
+                  record=_status_line(ref))
+    log("  [refsim] " + json.dumps(refsim))
+    if not holds:
+        raise AssertionError("the refsim arm leaves the record: "
+                             + json.dumps(refsim))
+    return refsim
+
+
+def oracle_phase():
+    """The oracle tools on the card: (a) ``fullscale_record`` of main path
+    4's engine (radialC, fp32 'eig', max_iter 1000) at T_final 300 s and
+    B=1024, then of the command line's own engine ('chol' fp32, B=8) beside
+    the JAX package's TPU record; (b) the port's fp64 'chol' engine at T=300
+    s on the card against the NumPy oracle ``simulate_continuous`` on the
+    JAX tool's ``RandomState(11)`` draws; (c) ``deviation_bench.replay`` of
+    the 60 recorded QPs in 'eig' fp32, 'pallas' fp32 and 'chol' fp64, the
+    first 3 'chol' steps also on the CPU; (d) the status-mix refsim arm on
+    the drivers phase's shard against the JAX package's record. The host
+    oracles of (b) and (d) run in two child processes started with
+    ``spawn`` and without CUDA at the start, beside (a) and (c). Every
+    kernel count is set to 0 just before each card run and read just after;
+    returns the counts summed over the runs and the report."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from mpc_arpo_project_tpu_torch.tools import continuous_fullscale as cf
+    from mpc_arpo_project_tpu_torch.tools import status_mix
+
+    t_phase = time.perf_counter()
+    card = cf.device_line("cuda")
+    counters = _counters()
+    launches = {}
+
+    def start():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def stop(t0):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _read_counters(counters).items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return wall, got
+
+    # the host oracles first, in children without CUDA, one thread each
+    par_engine = cf.build(FULLSCALE_T, torch.float64, "cuda")
+    par_draws = cf.parity_draws(par_engine)
+    refsim_out = os.path.join(ROOT, "mpc_arpo_project_tpu_torch", "build",
+                              "status_mix_refsim.json")
+    os.makedirs(os.path.dirname(refsim_out), exist_ok=True)
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
+    with _environ(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                  OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1"):
+        oracle_job = pool.submit(cf.oracle_run, FULLSCALE_T, par_draws,
+                                 cf.oracle_scaling(par_engine))
+        refsim_job = pool.submit(status_mix.run, ORACLE_ARGS + [
+            "--arm", "refsim", "--device", "cpu", "--out", refsim_out])
+    with pool:  # the children end with it, also when a check fails
+        fullscale, cli_rep = _fullscale_part(start, stop, card)
+        replays = _replay_part(start, stop)
+        par = _parity_part(start, stop, par_engine, par_draws,
+                           *oracle_job.result())
+        refsim = _refsim_part(refsim_job.result())
+
+    for k in ("eig_chunk", "admm_chunk", "ns_fused", "rk4_tick"):
+        if not launches.get(k):
+            raise AssertionError(f"the oracle phase launched no {k}")
+    return launches, dict(device=card, fullscale=fullscale,
+                          fullscale_cli=cli_rep, parity=par,
+                          deviation_replay=replays, refsim=refsim,
+                          wall_s=time.perf_counter() - t_phase)
 
 
 def in_track_agreement(seed):
@@ -2192,7 +2508,15 @@ def main() -> int:
     log(f"  drivers done at {time.perf_counter() - t_start:.1f} s "
         f"(the phase {drivers_report['wall_s']:.1f} s)")
 
-    # 12. small end-to-end agreement, card against CPU
+    # 12. the oracle tools: the full horizon, its parity, the deviation
+    # replay and the refsim arm
+    counts, oracle_report = oracle_phase()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"  oracle tools done at {time.perf_counter() - t_start:.1f} s "
+        f"(the phase {oracle_report['wall_s']:.1f} s)")
+
+    # 13. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(4, "pallas")
     small_agreement(5, "chol")
@@ -2202,7 +2526,7 @@ def main() -> int:
     continuous_agreement(10, "chol")
     in_track_agreement(12)
 
-    # 13. import check
+    # 14. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2214,6 +2538,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print("sweep: " + json.dumps(sweep_report))
     print("drivers: " + json.dumps(drivers_report))
+    print("oracle: " + json.dumps(oracle_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Status-mix / success-rate comparison between solver arms.
 
 Port of ``tools/status_mix.py`` (``build_configs`` is a copy of its
-lines 51-99, unchanged but for the port's config classes). The solver
+lines 51-99 and ``run_refsim_arm`` of its lines 190-230, unchanged but for
+the port's config classes and oracle). The solver
 status drives the reference's failsafe switching
 (``src/trajectorySimulate.py:296-314``), so the production path's
 acceptance test is: at IDENTICAL settings and noise draws, does the
@@ -18,14 +19,15 @@ by default):
   oracle-nostall  fp64 'chol' with stall exit DISABLED at the full max_iter
                   cap: OSQP-faithful termination semantics
                   (``trajectorySimulate.py:296-299``)
-  refsim          the serial NumPy oracle of ``tools/ref_sim.py``; the port
-                  has no copy of it yet, so the arm raises
+  refsim          the serial NumPy oracle (``tools/ref_sim.py`` of the port,
+                  the branch-for-branch reference replica): host fp64
+                  whatever --device says; slow, use small --runs or --shard
 
 Unlike the JAX tool, whose fp64 arms need a CPU process of their own, one
-process runs every arm on the card. The draws are ``np.random.RandomState``
-normals, bit for bit the JAX tool's for the same ``--seed``, and
-``--shard i/N`` slices them as it does, so ``tools/merge_shards.py`` merges
-either tool's shard files.
+process runs every rollout arm on the card. The draws are
+``np.random.RandomState`` normals, bit for bit the JAX tool's for the same
+``--seed``, and ``--shard i/N`` slices them as it does, so
+``tools/merge_shards.py`` merges either tool's shard files.
 
     python -m mpc_arpo_project_tpu_torch.tools.status_mix --config bench --runs 128
     python -m mpc_arpo_project_tpu_torch.tools.status_mix --config ref --sigma 0.03 \\
@@ -39,6 +41,7 @@ temporary directory), after every arm.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import tempfile
@@ -52,8 +55,15 @@ from mpc_arpo_project_tpu_torch.config import (
 )
 from mpc_arpo_project_tpu_torch.ops import admm
 from mpc_arpo_project_tpu_torch.rollout import discrete
+from mpc_arpo_project_tpu_torch.tools import ref_sim
 
 STATUS_NAME = {0: "UNSOLVED", 1: "SOLVED", 2: "MAX_ITER", 3: "PINF", 4: "DINF"}
+ORACLE_TO_CODE = {
+    "solved": 1,
+    "max iterations": 2,
+    "primal infeasible": 3,
+    "dual infeasible": 4,
+}
 ARMS = ("prod", "prod-pallas", "oracle", "oracle-nostall", "refsim")
 
 
@@ -202,11 +212,49 @@ def run_rollout_arm(name, sim, mpc, fail, debris, draws, *, solve_mode,
     }
 
 
-def run_refsim_arm(*args, **kwargs):
-    raise NotImplementedError(
-        "the refsim arm runs tools/ref_sim.py's serial NumPy oracle, which "
-        "the port does not hold yet: ROADMAP queue 1, item 8 brings the "
-        "port's copies of tools/ref_sim.py and tools/osqp_ref.py with it")
+def run_refsim_arm(sim, mpc, fail, debris, draws, *, max_iter, stall):
+    """The serial NumPy oracle (``tools/ref_sim.py`` of the port) on each
+    scenario's draws in turn, on the host in fp64 whatever ``--device``
+    says: the summary keys of the JAX tool's arm
+    (``tools/status_mix.py:190-230``)."""
+    B = draws.shape[1]
+    counts = collections.Counter()
+    succ = 0
+    i_terms = []
+    ctrl_counts = collections.Counter()
+    t0 = time.time()
+    for b in range(B):
+        run = ref_sim.simulate_discrete(
+            sim, mpc, fail, debris, noise_draws=draws[:, b],
+            solver_kwargs=dict(max_iter=max_iter, stall_exit_chunks=stall),
+        )
+        counts.update(run.statuses)
+        succ += bool(run.success)
+        i_terms.append(run.i_term)
+        ctrl_counts.update(run.ctrl_seq.astype(int).tolist())
+        print(f"  refsim {b + 1}/{B}: i_term={run.i_term} "
+              f"success={run.success} "
+              f"statuses={dict(collections.Counter(run.statuses))}",
+              flush=True)
+    alive_o = sum(counts.values())
+    return {
+        "arm": "refsim",
+        "solve_mode": "numpy",
+        "dtype": "f64",
+        "stall": stall,
+        "wall_s": round(time.time() - t0, 1),
+        "alive_steps": alive_o,
+        "mix": {STATUS_NAME[ORACLE_TO_CODE[k]]: round(v / alive_o, 4)
+                for k, v in counts.items()},
+        "counts": {STATUS_NAME[ORACLE_TO_CODE[k]]: v
+                   for k, v in counts.items()},
+        "success_rate": succ / B,
+        "n_success": succ,
+        "mean_i_term": float(np.mean(i_terms)),
+        "ctrl_usage": {"mpc": ctrl_counts.get(1, 0),
+                       "failsafe": ctrl_counts.get(2, 0),
+                       "deadbeat": ctrl_counts.get(3, 0)},
+    }
 
 
 def arm_options(arm, solve_mode="eig", stall=12, tighten=24):
@@ -273,12 +321,13 @@ def run(argv=None) -> dict:
                "shard": shard, "arms": {}}
     for arm in arms:
         if arm == "refsim":
-            run_refsim_arm(sim, mpc, fail, debris, draws,
-                           max_iter=args.max_iter, stall=args.stall)
-        r = run_rollout_arm(
-            arm, sim, mpc, fail, debris, draws, max_iter=args.max_iter,
-            tile=args.tile, seg=args.seg, device=args.device,
-            **arm_options(arm, args.solve_mode, args.stall, args.tighten))
+            r = run_refsim_arm(sim, mpc, fail, debris, draws,
+                               max_iter=args.max_iter, stall=args.stall)
+        else:
+            r = run_rollout_arm(
+                arm, sim, mpc, fail, debris, draws, max_iter=args.max_iter,
+                tile=args.tile, seg=args.seg, device=args.device,
+                **arm_options(arm, args.solve_mode, args.stall, args.tighten))
         summary["arms"][arm] = r
         print(json.dumps(r, indent=1), flush=True)
         with open(args.out, "w") as fh:

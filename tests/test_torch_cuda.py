@@ -29,7 +29,13 @@ closed loop on the card equals the CPU's, and so does the mixed sweep's
 noisy offset-free in-track discrete engine ('eig'). The sweeps: a world-1 NCCL
 ``run_sweep`` on the card equals the CPU's ``chunk_stats`` on its chunks'
 draws, and a batch on the card gives its two halves' outcomes (fp64 'eig').
+The oracle tools: ``deviation_bench.replay`` of 3 recorded QPs on the card
+equals the CPU's ('eig' fp32, 'chol' fp64), and the continuous fp64 engine
+on the card holds the JAX tool's parity criteria against the NumPy oracle
+at T=10 s.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -40,6 +46,8 @@ from mpc_arpo_project_tpu_torch.ops import admm, admm_eig, admm_pallas
 from mpc_arpo_project_tpu_torch.ops import constraints, rk4_tick
 from mpc_arpo_project_tpu_torch.parallel import mc, mesh as mesh_lib
 from mpc_arpo_project_tpu_torch.rollout import continuous, discrete
+from mpc_arpo_project_tpu_torch.tools import continuous_fullscale
+from mpc_arpo_project_tpu_torch.tools import deviation_bench
 from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
@@ -767,3 +775,44 @@ def test_cuda_in_track_rollout_matches_cpu(gpu):
     for name in ("status", "ctrl_seq", "i_term", "success", "done_iters"):
         assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
     assert float((g.x_true.cpu() - c.x_true).abs().max()) <= 1e-6
+
+
+DEVSEQ = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts", "devseq_r5.npz")
+
+
+@pytest.mark.parametrize("mode, dtype, tol", [
+    ("eig", torch.float32, 1e-5), ("chol", torch.float64, 1e-9)])
+def test_cuda_replay_matches_cpu(gpu, mode, dtype, tol):
+    """``deviation_bench.replay`` of the first 3 recorded QPs on the card
+    (``eig_chunk`` in 'eig') and on the CPU (its twin) in the same dtype:
+    the same statuses, and per-step deviations from the oracle's truth
+    within ``tol`` (fp32: a tenth of the 1e-4 BASELINE deviation bound)."""
+    with np.load(DEVSEQ) as f:
+        seq = [f[k][:3] for k in ("l", "u", "coeffs", "u_true")]
+    n0 = admm_eig.eig_chunk.launches
+    g = deviation_bench.replay(*deviation_bench.prepare(mode, dtype, gpu),
+                               *seq)
+    if mode == "eig":
+        assert admm_eig.eig_chunk.launches > n0
+    c = deviation_bench.replay(*deviation_bench.prepare(mode, dtype, "cpu"),
+                               *seq)
+    np.testing.assert_array_equal(g[1], c[1])
+    np.testing.assert_allclose(g[0], c[0], rtol=0, atol=tol)
+
+
+def test_cuda_continuous_parity_with_the_oracle(gpu):
+    """The port's fp64 continuous engine on the card for 10 s (19 ticks of
+    500 substeps, ``rk4_tick`` once a tick) against the NumPy oracle
+    ``simulate_continuous`` on the same ``RandomState(11)`` draws: the JAX
+    tool's criteria (termination substep, controller codes and success
+    equal, the tick trajectory within 1e-6)."""
+    eng = continuous_fullscale.build(10.0, torch.float64, gpu)
+    draws = continuous_fullscale.parity_draws(eng)
+    runo, wall = continuous_fullscale.oracle_run(
+        10.0, draws, continuous_fullscale.oracle_scaling(eng))
+    n0 = rk4_tick.rk4_tick.launches
+    rec = continuous_fullscale.parity_record(eng, draws, runo, wall)
+    assert rk4_tick.rk4_tick.launches == n0 + eng.n_ticks - 1
+    assert rec["backend"] == "cuda"
+    assert continuous_fullscale.parity_ok(rec), rec

@@ -2,8 +2,8 @@
 status_mix.py``) against ``tools/status_mix.py``: the same arms on the same
 ``RandomState`` draws give the same summary (fp64, CPU; JAX's Pallas 'eig'
 kernel runs as its own tests run it); its shard files merge with the
-unmodified ``tools/merge_shards.py`` into the unsharded counts; the refsim
-arm, which needs a port of ``tools/ref_sim.py``, raises."""
+unmodified ``tools/merge_shards.py`` into the unsharded counts. The refsim
+arm is held to the JAX tool's in ``tests/test_torch_oracle_tools.py``."""
 
 import dataclasses
 import json
@@ -97,9 +97,3 @@ def test_shards_merge_into_the_unsharded_run(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(merged["mean_i_term"], w["mean_i_term"],
                                rtol=1e-12)
     assert merged["success_rate"] == w["success_rate"]
-
-
-def test_refsim_arm_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tsm.run(["--arm", "refsim", "--runs", "2", "--device", "cpu",
-                 "--out", str(tmp_path / "r.json")])
