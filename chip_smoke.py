@@ -112,15 +112,34 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    from the start of the phase in two child processes started with
    ``spawn``, without CUDA and on one thread each. Its ``oracle:`` line
    follows the ``drivers:`` line;
-13. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+13. the sigma=0.01 docking-gap dissection (``tools/first_divergence.py``
+   and ``tools/probe_stall.py`` of the port), in one process: (a) the
+   production rollout (fp32 'eig', the reference success-rate
+   configuration at sigma=0.01, 128 runs x 600 steps, the draws of
+   ``status_mix --seed 20260818``), keeping the carry entering every step
+   on the card; (b) the fp64 'chol' oracle on the 45 gap columns of the
+   JAX package's record ``artifacts/fd_oracle_r5.npz``, held to it under
+   the rule of phase 11's oracle arm (whether statuses, termination and
+   success are exact is printed); (c) ``compare`` of (a) and (b): the kinds
+   of first flip and each gap scenario's first flip, beside the JAX
+   package's reading of its own files; (d) the carry entering step 65 (and
+   the gap's most common first-flip step, if another) captured:
+   ``resolve_full`` must give every alive row its recorded status, and
+   ``resolve`` re-solves it in fp32 'eig' and fp64 'chol'; (e)
+   ``probe_stall``'s dump of (a)'s plateau pairs analysed in fp64 'chol'
+   and fp32 'eig', and the JAX package's recorded pairs
+   (``artifacts/stall_probe_r5.npz``) analysed beside their log. Its
+   ``dissection:`` line follows the ``oracle:`` line;
+14. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination, success and ``done_iters``, and trajectories within 1e-6;
-   for 'eig', 'pallas' and 'chol', for 'chol' with ``estimator='kf'`` and
-   with ``synthesis='torch'``, and for the mixed sweep's noisy offset-free
+   for 'eig' (with the 'dual' and the 'near' rho rescue), 'pallas' and
+   'chol', for 'chol' with ``estimator='kf'`` and with
+   ``synthesis='torch'``, and for the mixed sweep's noisy offset-free
    in-track engine ('eig'); and 5 ticks of the continuous loop in fp64 at
    B=8 ('eig' and 'chol'), which must also give the same termination
    substeps;
-14. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
+15. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
    ``examples`` module was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -129,8 +148,8 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the ``sweep:``, ``drivers:`` and ``oracle:`` lines and the
-kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
+Prints the ``sweep:``, ``drivers:``, ``oracle:`` and ``dissection:`` lines
+and the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
 """
@@ -138,8 +157,10 @@ fails or no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -206,18 +227,20 @@ def flagship_sim(T_final, sigma=0.75):
         Noise((sigma, sigma), 50), False, T_final=T_final)
 
 
-def flagship(T_final, device, dtype, solve_mode="eig", **engine_kw):
+def flagship(T_final, device, dtype, solve_mode="eig", settings_kw=None,
+             **engine_kw):
     """The flagship scenario and the production solver profile (the
     repository's bench configuration at its defaults, with
-    ``BENCH_SOLVE_MODE=solve_mode``); ``engine_kw`` (``estimator``,
-    ``synthesis``) goes to ``build_engine``."""
+    ``BENCH_SOLVE_MODE=solve_mode``), with the settings ``settings_kw``
+    changed; ``engine_kw`` (``estimator``, ``synthesis``) goes to
+    ``build_engine``."""
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
     mpc, fail, debris = _parts(50)
     sim = flagship_sim(T_final)
-    return discrete.build_engine(sim, mpc, fail, debris,
-                                 settings=_settings(solve_mode), dtype=dtype,
-                                 device=device, **engine_kw)
+    settings = _settings(solve_mode)._replace(**(settings_kw or {}))
+    return discrete.build_engine(sim, mpc, fail, debris, settings=settings,
+                                 dtype=dtype, device=device, **engine_kw)
 
 
 def radial_c(T_final, device, dtype, solve_mode="eig"):
@@ -1321,18 +1344,21 @@ def refresh_census(calls, T, span_ms):
     return out
 
 
-def small_agreement(seed, solve_mode, **engine_kw):
+def small_agreement(seed, solve_mode, settings_kw=None, **engine_kw):
     """4 fp64 control steps at B=8: the card (kernels) against the CPU
-    (twins); ``engine_kw`` goes to ``build_engine``."""
+    (twins); ``settings_kw`` changes the solver settings and ``engine_kw``
+    goes to ``build_engine``."""
     import torch
     from mpc_arpo_project_tpu_torch.rollout import discrete
 
     outs = []
     rng = np.random.default_rng(seed)
     draws = None
-    label = " ".join([solve_mode] + [f"{k}={v}" for k, v in engine_kw.items()])
+    kw = {**(settings_kw or {}), **engine_kw}
+    label = " ".join([solve_mode] + [f"{k}={v}" for k, v in kw.items()])
     for device in ("cuda", "cpu"):
-        eng = flagship(2.0, device, torch.float64, solve_mode, **engine_kw)
+        eng = flagship(2.0, device, torch.float64, solve_mode, settings_kw,
+                       **engine_kw)
         if draws is None:
             draws = rng.standard_normal((eng.nsim // eng.noise_rep + 2, 8, 4))
         ns = discrete.noise_sequence_from_draws(eng, draws)
@@ -2388,6 +2414,200 @@ def oracle_phase():
                           wall_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# the sigma=0.01 docking-gap dissection (``tools/first_divergence.py`` and
+# ``tools/probe_stall.py`` of the port)
+# ---------------------------------------------------------------------------
+
+# the JAX package's round-5 dissection: its TPU production rollout, its fp64
+# oracle on the 45 gap columns and its stall-probe capture with the log of
+# that capture's analysis
+FD_PROD_RECORD = os.path.join(ARTIFACTS, "fd_prod_r5.npz")
+FD_ORACLE_RECORD = os.path.join(ARTIFACTS, "fd_oracle_r5.npz")
+STALL_RECORD = os.path.join(ARTIFACTS, "stall_probe_r5.npz")
+STALL_LOG = os.path.join(ARTIFACTS, "probe_analyze_r5.log")
+# the step whose entering carry the JAX package captured
+# (``artifacts/fd_cap65_r5.npz``), and the docked count of the same
+# rollout in the drivers' status-mix 'prod' arm on the card (PERF.md)
+DISSECT_STEP = 65
+CARD_PROD_DOCKED = 83
+
+
+def _fd_summary(d):
+    """A status-mix arm's numbers of a first-divergence rollout file."""
+    st, ctrl = d["status"], d["ctrl_seq"]
+    names = {1: "SOLVED", 2: "MAX_ITER", 3: "PINF", 4: "DINF", 0: "UNSOLVED"}
+    return dict(
+        counts={v: int((st == k).sum()) for k, v in names.items()},
+        n_success=int(d["success"].sum()), alive_steps=int((st >= 0).sum()),
+        mean_i_term=float(d["i_term"].mean()),
+        ctrl_usage={"mpc": int((ctrl == 1).sum()),
+                    "failsafe": int((ctrl == 2).sum()),
+                    "deadbeat": int((ctrl == 3).sum())})
+
+
+def _log_arrays(text, label):
+    """(statuses, iterations) of a ``probe_stall --analyze`` arm's line."""
+    m = re.search(label + r": status \[([\d ]+)\] iters \[([\d ]+)\]",
+                  text)
+    return [int(v) for v in m.group(1).split()], [int(v) for v in
+                                                  m.group(2).split()]
+
+
+def _analysis(rep):
+    keys = ("steps", "scenarios", "status_fp64", "iters_fp64", "status_fp32",
+            "iters_fp32", "pviol_fp32", "pviol_fp64")
+    return {k: rep[k] for k in keys}
+
+
+def dissection_phase():
+    """The sigma=0.01 dissection on the card, in one process: (a) the
+    production rollout (fp32 'eig', 128 runs, 300 s) on the draws of
+    ``status_mix --seed 20260818``, keeping the carry entering every step;
+    (b) the fp64 'chol' oracle on the 45 gap columns of the JAX package's
+    record, held to it; (c) ``compare`` of the two, beside the JAX
+    package's reading of its own files; (d) the carry entering step 65
+    (and the gap scenarios' most common first-flip step, if another)
+    captured, re-solved by ``resolve_full`` (every alive row must get its
+    recorded status) and by ``resolve`` (fp32 'eig' against fp64 'chol');
+    (e) ``probe_stall``'s dump of the rollout's plateau pairs analysed,
+    and the JAX package's recorded probe analysed beside its log. Every
+    kernel count is set to 0 just before each card run and read just
+    after; returns the counts summed over the runs and the report."""
+    import torch
+    from mpc_arpo_project_tpu_torch.ops import _build
+    from mpc_arpo_project_tpu_torch.tools import first_divergence as fd
+    from mpc_arpo_project_tpu_torch.tools import probe_stall as ps
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    launches = {}
+
+    def start():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def stop(t0):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _read_counters(counters).items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return wall, got
+
+    out_dir = os.path.join(_build.BUILD, "dissection")
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda name: os.path.join(out_dir, name)
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+
+    # a. production, every step's entering carry kept on the card
+    t0 = start()
+    prod = ps.rollout_run(128, device="cuda")
+    wall_a, got_a = stop(t0)
+    if not got_a.get("eig_chunk"):
+        raise AssertionError(f"the production rollout launched {got_a}")
+    with quiet():
+        summ = fd.run_prod(path("prod.npz"), run=prod)
+    rep = dict(prod=dict(runs=128, steps=prod.engine.nsim, wall_s=wall_a,
+                         launches=got_a, docked=summ["n_success"],
+                         drivers_prod_arm_docked=CARD_PROD_DOCKED,
+                         alive_steps=summ["alive_steps"], mix=summ["mix"],
+                         mean_iters_per_step=summ["mean_iters_per_step"]))
+    log("  [prod] " + json.dumps(rep["prod"]))
+
+    # b. the fp64 oracle on the record's gap columns, held to the record
+    with np.load(FD_ORACLE_RECORD) as f:
+        record = {k: f[k] for k in f.files}
+    cols = record["cols"].tolist()
+    t0 = start()
+    orc = ps.rollout_run(128, steps=(), device="cuda", cols=cols,
+                         solve_mode="chol", dtype_str="f64")
+    wall_b, got_b = stop(t0)
+    with quiet():
+        fd.run_oracle(path("oracle.npz"), cols, run=orc)
+    with np.load(path("oracle.npz")) as f:
+        mine = {k: f[k] for k in f.files}
+    exact = {k: bool(np.array_equal(mine[k], record[k]))
+             for k in ("status", "i_term", "success")}
+    holds, _ = _held_to_record(_fd_summary(mine), _fd_summary(record))
+    rep["oracle"] = dict(columns=len(cols), wall_s=wall_b, exact=exact,
+                         port=_fd_summary(mine), record=_fd_summary(record))
+    log("  [oracle] " + json.dumps(rep["oracle"]))
+    if not holds:
+        raise AssertionError("the card's oracle leaves the record: "
+                             + json.dumps(rep["oracle"]))
+
+    # c. the first flips, and the JAX package's reading of its own files
+    with quiet():
+        flips = fd.compare(path("prod.npz"), path("oracle.npz"))
+        flips_r5 = fd.compare(FD_PROD_RECORD, FD_ORACLE_RECORD)
+    gap = fd.gap_scenarios(flips)
+    firsts = [r["t_first"] for r in gap if r["t_first"] is not None]
+    common = max(set(firsts), key=firsts.count) if firsts else None
+    rep["compare"] = dict(
+        kinds=fd.flip_kinds(flips), n_gap=len(gap),
+        gap_first_flips=[[r["scen"], r["t_first"], r["prod"], r["oracle"]]
+                         for r in gap],
+        most_common_gap_first_flip=common,
+        jax_r5=dict(kinds=fd.flip_kinds(flips_r5),
+                    n_gap=len(fd.gap_scenarios(flips_r5))))
+    log("  [compare] " + json.dumps(rep["compare"]))
+
+    # d. capture the carry entering the step and re-solve it
+    rep["capture"] = []
+    status = prod.out.status.cpu().numpy()
+    for step in sorted({DISSECT_STEP, common or DISSECT_STEP}):
+        at = [r["scen"] for r in gap if r["t_first"] == step]
+        stuck = np.nonzero(status[step] == 2)[0].tolist()
+        scen = (at or stuck or [int(np.argmax(status[step] >= 0))])[0]
+        cap = path(f"cap{step}.npz")
+        with quiet():
+            fd.capture(cap, scen, step, run=prod)
+        t0 = start()
+        with quiet():
+            full = ps.resolve_full(cap, "cuda")
+            res = fd.resolve(cap, "cuda")
+        wall_d, got_d = stop(t0)
+        entry = dict(step=step, scen=scen, resolve_full=full, resolve=res,
+                     wall_s=wall_d, launches=got_d)
+        log("  [capture] " + json.dumps(entry))
+        if full["agreement"] != 1.0:
+            raise AssertionError(f"the capture of step {step} re-solves to "
+                                 f"{full['agreement']:.4f} of its recorded "
+                                 "statuses: it is not bit-exact")
+        rep["capture"].append(entry)
+
+    # e. the stall probe: the rollout's plateau pairs, and the JAX
+    # package's recorded pairs beside its log
+    with quiet():
+        dumped = ps.dump(path("probe.npz"), run=prod)
+    with open(STALL_LOG) as fh:
+        text = fh.read()
+    t0 = start()
+    with quiet():
+        mine = ps.analyze(path("probe.npz"), "cuda") if dumped["chosen"] \
+            else None
+        r5 = ps.analyze(STALL_RECORD, "cuda")
+    wall_e, got_e = stop(t0)
+    logged = dict(zip(("status_fp64", "iters_fp64"),
+                      _log_arrays(text, "fp64 chol warm")))
+    logged.update(zip(("status_fp32", "iters_fp32"),
+                      _log_arrays(text, "fp32 eig warm")))
+    rep["stall_probe"] = dict(
+        dump=dict(n_max_iter=dumped["n_max_iter"], chosen=dumped["chosen"]),
+        analysis=mine and _analysis(mine),
+        recorded_pairs=dict(card=_analysis(r5), log=logged),
+        wall_s=wall_e, launches=got_e)
+    log("  [stall probe] " + json.dumps(rep["stall_probe"]))
+    if not got_e.get("eig_chunk"):
+        raise AssertionError(f"the stall probe launched {got_e}")
+    del prod, orc
+    rep["wall_s"] = time.perf_counter() - t_phase
+    return launches, rep
+
+
 def in_track_agreement(seed):
     """4 fp64 control steps of the mixed sweep's noisy offset-free in-track
     engine ('eig') at B=8: the card (kernels) against the CPU (twins)."""
@@ -2516,8 +2736,16 @@ def main() -> int:
     log(f"  oracle tools done at {time.perf_counter() - t_start:.1f} s "
         f"(the phase {oracle_report['wall_s']:.1f} s)")
 
-    # 13. small end-to-end agreement, card against CPU
+    # 13. the sigma=0.01 docking-gap dissection
+    counts, dissection_report = dissection_phase()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"  dissection done at {time.perf_counter() - t_start:.1f} s "
+        f"(the phase {dissection_report['wall_s']:.1f} s)")
+
+    # 14. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
+    small_agreement(13, "eig", settings_kw=dict(eig_rescue_mode="near"))
     small_agreement(4, "pallas")
     small_agreement(5, "chol")
     small_agreement(6, "chol", estimator="kf")
@@ -2526,7 +2754,7 @@ def main() -> int:
     continuous_agreement(10, "chol")
     in_track_agreement(12)
 
-    # 14. import check
+    # 15. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2539,6 +2767,7 @@ def main() -> int:
     print("sweep: " + json.dumps(sweep_report))
     print("drivers: " + json.dumps(drivers_report))
     print("oracle: " + json.dumps(oracle_report))
+    print("dissection: " + json.dumps(dissection_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

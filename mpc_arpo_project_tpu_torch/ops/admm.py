@@ -19,11 +19,14 @@ What differs from the JAX package:
   chunk (the all-done flag or live count, read together with the refresh
   flag), and the ``lax.cond`` refresh branches are Python ``if``s on host
   reads — each such read is a device sync;
-* ``eig_rescue_mode`` must be ``'dual'`` (the JAX package silently runs the
-  'near' rescue for any other string), and a rescue window that can never
-  fire (``eig_rescue_chunks >= stall_exit_chunks``) is refused;
-* 'pallas' runs every product in full precision: ``mxu_precision`` other
-  than ``'highest'`` is refused, and ``minv_two_limb`` has no effect.
+* ``eig_rescue_mode`` must be ``'dual'`` or ``'near'``: any other string
+  is refused, where the JAX package silently runs the 'near' rescue for
+  it (a typo of 'dual' included); a rescue window that can never fire
+  (``eig_rescue_chunks >= stall_exit_chunks``) is refused too;
+* 'eig' and 'pallas' run every product in full precision:
+  ``mxu_precision`` other than ``'highest'`` is refused in both, and
+  ``eig_refresh_precision`` other than ``'highest'`` in 'eig';
+  ``minv_two_limb`` has no effect.
 
 Problem setup (``prepare_problem``) stays numpy/scipy float64 on the host and
 converts to torch only at the end. The entry points put their tensors on the
@@ -60,8 +63,9 @@ class ADMMSettings(NamedTuple):
 
     TPU layout knobs kept for a common surface, with no effect here:
     ``eig_apply`` (three TPU layouts of one product a·T⁻¹; the CUDA kernel
-    has one), ``mxu_precision`` (every product here is full fp32/fp64 FMA;
-    'pallas' mode refuses any value but 'highest') and ``minv_two_limb``.
+    has one) and ``minv_two_limb``. Every product here is full fp32/fp64
+    FMA: ``mxu_precision`` (in 'eig' and 'pallas') and
+    ``eig_refresh_precision`` (in 'eig') refuse any value but 'highest'.
     ``pallas_tile`` keeps its meaning as the combo-pure slot-group width
     ``bt`` of 'eig' mode and the tile width that sizes 'pallas' mode's
     refresh and cascade buffers."""
@@ -704,11 +708,20 @@ def _tile_width(B: int, pallas_tile: int) -> int:
     return max(bt, 1)
 
 
+def _check_full_precision(settings: ADMMSettings, *names: str) -> None:
+    for name in names:
+        if getattr(settings, name) != "highest":
+            raise ValueError(
+                f"{name}={getattr(settings, name)!r}: the port runs every "
+                "product in full precision; only 'highest' is supported")
+
+
 def _check_eig_settings(settings: ADMMSettings) -> None:
-    if settings.eig_rescue_mode != "dual":
+    _check_full_precision(settings, "mxu_precision", "eig_refresh_precision")
+    if settings.eig_rescue_mode not in ("dual", "near"):
         raise ValueError(
-            f"eig_rescue_mode={settings.eig_rescue_mode!r}: only 'dual' is "
-            "supported")
+            f"eig_rescue_mode={settings.eig_rescue_mode!r}: only 'dual' and "
+            "'near' are supported")
     if (settings.adaptive_rho and settings.eig_rho_rescue
             and settings.stall_exit_chunks
             and settings.eig_rescue_chunks >= settings.stall_exit_chunks):
@@ -973,9 +986,17 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             if nc % adapt_stride:
                 trig = torch.zeros_like(trig)
             if rescue_on:
-                # 'dual' rescue: primal converged, dual plateaued, no
-                # residual progress for eig_rescue_chunks
-                rescue = (~done & (rp <= tp) & (rd > td)
+                # no residual progress for eig_rescue_chunks and, 'dual':
+                # primal converged, dual plateaued; 'near': both residuals
+                # within eig_rescue_near of tolerance, one above it
+                if settings.eig_rescue_mode == "dual":
+                    gate = (rp <= tp) & (rd > td)
+                else:
+                    nm = settings.eig_rescue_near
+                    gate = ((rp <= nm * tp.clamp(min=1e-30))
+                            & (rd <= nm * td.clamp(min=1e-30))
+                            & ((rp > tp) | (rd > td)))
+                rescue = (~done & gate
                           & (nc - last_prog >= settings.eig_rescue_chunks)
                           & (rescue_cnt < settings.eig_rescue_max)
                           & torch.isfinite(ratio))
@@ -1129,10 +1150,7 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
     the JAX package's ``_solve_pallas`` for the refresh gating, the
     compacted needy refresh and the overtime cascade, which this follows
     step for step."""
-    if settings.mxu_precision != "highest":
-        raise ValueError(
-            f"mxu_precision={settings.mxu_precision!r}: the port runs every "
-            "product in full precision; only 'highest' is supported")
+    _check_full_precision(settings, "mxu_precision")
     dt = prob.Pbar.dtype
     dev = prob.Pbar.device
     B = lbar.shape[0]

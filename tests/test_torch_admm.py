@@ -160,7 +160,9 @@ def test_refresh_capacity_compaction_is_exact(setup, cold):
 @pytest.mark.parametrize("kw, err", [
     (dict(solve_mode="qr"), ValueError),
     (dict(solve_mode="pallas", mxu_precision="high"), ValueError),
-    (dict(KW, eig_rescue_mode="near"), ValueError),
+    (dict(KW, eig_rescue_mode="dula"), ValueError),
+    (dict(KW, mxu_precision="high"), ValueError),
+    (dict(KW, eig_refresh_precision="high"), ValueError),
     (dict(KW, stall_exit_chunks=6, eig_rescue_chunks=6), ValueError),
 ])
 def test_unsupported_settings_raise(setup, kw, err):

@@ -4,7 +4,9 @@ of ``tests/test_distributed.py``. Each rank
 runs its half of every chunk and the stats meet in one ``all_gather``, so this
 also holds the closed loop to batch-composition independence: a scenario's
 outcome must not depend on the scenarios beside it in the batch ('eig'
-packs slots, compacts stragglers and caps its refresh by batch)."""
+packs slots, compacts stragglers and caps its refresh by batch). Also the
+weak-scaling tool ``tools/scaling_bench.py`` of the port over gloo
+ranks."""
 
 import json
 import os
@@ -96,3 +98,21 @@ def test_two_process_sweep_matches_single_process(tmp_path, mode):
         settings=admm.ADMMSettings(**SWEEP_SETTINGS[mode]),
         dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(dist_res["study_ratios"], ratios, rtol=1e-9)
+
+
+def test_scaling_bench_over_gloo_ranks(capsys):
+    """``tools/scaling_bench.py`` of the port at W = 1 and 2 gloo ranks on
+    the CPU (2 scenarios a rank, 2 control steps): one line per W, each
+    sweep over the whole batch, W = 1 the efficiency's base."""
+    from mpc_arpo_project_tpu_torch.tools import scaling_bench
+
+    res = scaling_bench.main(["--cpu", "--devices", "1", "2",
+                              "--per-device", "2", "--T", "1.0"])
+    out = capsys.readouterr().out
+    assert [r["devices"] for r in res] == [1, 2]
+    assert [r["batch"] for r in res] == [r["scenarios_run"] for r in res] \
+        == [2, 4]
+    assert res[0]["efficiency"] == 1.0
+    for r in res:
+        assert r["seconds"] > 0 and r["sims_per_s"] == r["batch"] / r["seconds"]
+        assert f"devices={r['devices']:2d} batch={r['batch']:4d}:" in out

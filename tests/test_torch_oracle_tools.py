@@ -14,10 +14,12 @@
   (fp64, T=3 s) against the numbers the JAX tool's ``run_tpu`` records;
 * ``deviation_bench``: ``--record --steps 4`` writes arrays equal to the
   JAX tool's; ``replay`` of the first 3 steps of ``artifacts/devseq_r5.npz``
-  in 'chol' fp64 gives per-step deviations within 1e-10 of the JAX tool's
-  replay loop (``tools/deviation_bench.py:177-193``) with the same
-  statuses, and the JAX tool's ``--replay`` returns the same maximum;
-* the entry points that run on the card raise without one.
+  in fp64 'chol', 'eig' and 'pallas' gives per-step deviations within
+  1e-10 of the JAX tool's replay loop (``tools/deviation_bench.py:177-193``)
+  with the same statuses, and for 'chol' the JAX tool's ``--replay``
+  returns the same maximum;
+* the entry points that run on the card raise without one (those of the
+  dissection tools and of ``scaling_bench`` too).
 
 The JAX references are computed in module-scoped fixtures.
 """
@@ -42,6 +44,9 @@ from mpc_arpo_project_tpu.rollout import continuous as jcont
 from mpc_arpo_project_tpu_torch.ops import admm
 from mpc_arpo_project_tpu_torch.tools import continuous_fullscale as tcf
 from mpc_arpo_project_tpu_torch.tools import deviation_bench as tdb
+from mpc_arpo_project_tpu_torch.tools import first_divergence as tfd
+from mpc_arpo_project_tpu_torch.tools import probe_stall as tps
+from mpc_arpo_project_tpu_torch.tools import scaling_bench as tsb
 from mpc_arpo_project_tpu_torch.tools import status_mix as tsm
 from tests.torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
@@ -233,7 +238,26 @@ def test_replay_chol_matches_jax(devseq3, tmp_path):
                                                                  abs=1e-15)
 
 
+@pytest.mark.parametrize("mode", ["eig", "pallas"])
+def test_replay_fp64_matches_jax(devseq3, mode):
+    """The first 3 recorded steps in 'eig' and 'pallas' (the padded
+    problem, their kernels' CPU twins) in fp64: the statuses of the JAX
+    tool's replay loop, and each step's deviation within 1e-10 of it."""
+    ref_devs, ref_st = _jax_replay(mode, jnp.float64, devseq3)
+    prob, settings = tdb.prepare(mode, torch.float64, "cpu")
+    devs, st = tdb.replay(prob, settings, devseq3["l"], devseq3["u"],
+                          devseq3["coeffs"], devseq3["u_true"])
+    np.testing.assert_array_equal(st, ref_st)
+    np.testing.assert_allclose(devs, ref_devs, rtol=0, atol=1e-10)
+
+
 # ----------------------------- no card, no run ---------------------------
+
+CAP65 = os.path.join(REPO, "artifacts", "fd_cap65_r5.npz")
+STALL = os.path.join(REPO, "artifacts", "stall_probe_r5.npz")
+MAINS = {"cf": tcf.main, "db": tdb.main, "fd": tfd.main, "ps": tps.main,
+         "sb": tsb.main}
+
 
 @NO_CARD
 @pytest.mark.parametrize("argv", [
@@ -241,9 +265,19 @@ def test_replay_chol_matches_jax(devseq3, tmp_path):
     ("cf", ["--parity", "--T", "1"]),
     ("db", ["--replay", DEVSEQ]),
     ("db", ["--steps", "2"]),
-], ids=["gpu", "parity", "replay", "record-and-solve"])
+    ("fd", ["--prod", "prod.npz"]),
+    ("fd", ["--oracle", "oracle.npz", "--cols", "0,1"]),
+    ("fd", ["--capture", "cap.npz", "--scen", "0", "--step", "65"]),
+    ("fd", ["--resolve", CAP65]),
+    ("ps", ["--dump", "probe.npz"]),
+    ("ps", ["--analyze", STALL]),
+    ("ps", ["--dump-full", "full.npz"]),
+    ("ps", ["--resolve-full", CAP65]),
+    ("sb", ["--devices", "1"]),
+], ids=["gpu", "parity", "replay", "record-and-solve", "fd-prod",
+        "fd-oracle", "fd-capture", "fd-resolve", "ps-dump", "ps-analyze",
+        "ps-dump-full", "ps-resolve-full", "scaling-bench"])
 def test_card_entry_points_raise_without_a_card(argv):
     tool, args = argv
-    main = tcf.main if tool == "cf" else tdb.main
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(args)
+        MAINS[tool](args)
