@@ -64,18 +64,22 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    checkpoint; its resume from a checkpoint cut after chunk 0, which must
    give the same counts and the mean final distance within 1e-6 (bit
    identity is printed); a batch against its two halves on the same draws
-   (fp64 'eig' at B=256: the same termination, success and controller
-   codes per scenario and stats within 1e-9; fp32 at B=1024: the count of
-   scenarios that differ is printed); the fused disturbance-rejection
+   (fp64 'eig' at B=256 for 70 steps: the same termination, success and
+   controller codes per scenario and stats within 1e-9; fp32 at B=1024:
+   the count of scenarios that differ is printed); the fused
+   disturbance-rejection
    study (sigma 0.7, hold lengths 10, 50 and 150 steps, 170 runs each, both
-   arms: 1020 scenarios for 100 steps); and ``chunk_stats`` of the
-   continuous radialC engine at B=1024 for 20 ticks. Its ``sweep:`` line
-   holds scenarios/s, alive-solves/s, the outcome sums, the checks and the
+   arms: 1020 scenarios for 70 steps); and ``chunk_stats`` of the
+   continuous radialC engine at B=1024 for 20 ticks; then
+   ``graft_entry.dryrun_multichip(1)`` (the entry programs' sharded sweep
+   step, Nx=40 'eig', B=2) over the same group. Its ``sweep:`` line holds
+   scenarios/s, alive-solves/s, the outcome sums, the checks and the
    study's ratios;
 11. the drivers users run (``examples``, ``tools/status_mix.py`` of the
    port): the mixed sweep's 10 engines (radial and in-track x R_input
    scales 0.25-4) at B=1024 each, 10,240 scenarios in fp32 'eig' with its
-   ``--quick`` depth and solver cap (30 s, max_iter 500), through its
+   ``--quick`` solver cap (max_iter 500) for 20 s (its ``--quick`` depth
+   is 30 s), through its
    ``grid``, ``scenario_inputs`` and ``engine_stats`` (each engine must
    launch ``eig_chunk``, alive statuses lie in 0..4, and an in-track
    scenario with non-finite states must be counted diverged); the
@@ -89,8 +93,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 12. the oracle tools (``tools/continuous_fullscale.py``,
    ``tools/deviation_bench.py``, the status-mix refsim arm of the port):
    (a) ``fullscale_record`` of main path 4's engine (radialC, fp32 'eig',
-   max_iter 1000) uncut, T_final 300 s (600 ticks, 300,000 substeps a
-   scenario) at B=1024: finite states, and each scenario's controller
+   max_iter 1000) for T_final 150 s (300 ticks, 150,000 substeps a
+   scenario; the tool's horizon, 300 s, runs in the B=8 engine below and
+   in (b)) at B=1024: finite states, and each scenario's controller
    codes nonzero exactly on the ticks that started before its termination
    substep; then the command line's own engine ('chol' fp32, B=8) beside
    the JAX package's TPU record ``artifacts/contC_tpu_r5.json`` (other
@@ -130,7 +135,18 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    and fp32 'eig', and the JAX package's recorded pairs
    (``artifacts/stall_probe_r5.npz``) analysed beside their log. Its
    ``dissection:`` line follows the ``oracle:`` line;
-14. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+14. the bench (``mpc_arpo_project_tpu_torch/bench.py``, the repository's
+   ``bench.py`` on the port) at its defaults, full width and depth: fp32
+   'eig', B=1024, 300 control steps, its timed pass and its latency pass
+   (a sync every step); alive steps, no UNSOLVED alive step and
+   ``eig_chunk`` launches are asserted, and the status mix is printed
+   beside the JAX package's TPU v5e record (``BENCH_r05.json``, other
+   draws: not held) and by window of steps; then ``graft_entry.entry()``'s
+   step (B=8, Nx=40, 'eig') on the card against the CPU: in fp64 the same
+   statuses, controller codes and ``done_iters`` and the state within
+   1e-6, in fp32 finite. Its ``bench:`` line follows the ``dissection:``
+   line;
+15. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination, success and ``done_iters``, and trajectories within 1e-6;
    for 'eig' (with the 'dual' and the 'near' rho rescue), 'pallas' and
@@ -139,7 +155,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    in-track engine ('eig'); and 5 ticks of the continuous loop in fp64 at
    B=8 ('eig' and 'chol'), which must also give the same termination
    substeps;
-15. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
+16. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
    ``examples`` module was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -148,8 +164,9 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the ``sweep:``, ``drivers:``, ``oracle:`` and ``dissection:`` lines
-and the kernels' JSON line, then ``{"ok": true, ...}`` as the last line.
+Prints the ``sweep:``, ``drivers:``, ``oracle:``, ``dissection:`` and
+``bench:`` lines and the kernels' JSON line, then ``{"ok": true, ...}``
+as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
 """
@@ -187,44 +204,27 @@ def log(*a):
 
 def _parts(Nx):
     """MPC weights (horizon ``Nx``), failsafe gains and the debris box of
-    the flagship family (``bench.py:50-128``)."""
-    from mpc_arpo_project_tpu_torch import Debris, FailsafeParams, MPCParams
+    the flagship family (``mpc_arpo_project_tpu_torch.bench``)."""
+    from mpc_arpo_project_tpu_torch import bench
 
-    v_ecr = 50000.0 * np.ones(5)
-    v_ecr[-2] *= -1
-    v_ecr[-1] = 0.0
-    mpc = MPCParams(
-        8e2 * np.diag([0.2 ** 2, 10 ** 2, 3.8 ** 2, 900.0]),
-        1000 ** 2 * np.eye(2), 5 ** 2 * np.eye(5), v_ecr,
-        {"Nx": Nx, "Nc": 5, "Nb": 5}, (0.2, 0.2))
-    fail = FailsafeParams(
-        0.005 * np.diag([0.0001, 1, 100000.0, 1.0, 0.01]), 100 * np.eye(2),
-        np.eye(1, 4), np.zeros((2, 2)))
-    return mpc, fail, Debris((40.0, 0.0), 5.0, 20.0)
+    return bench.flagship_parts(Nx)
 
 
 def _settings(solve_mode, max_iter=4000):
-    """The production solver profile (``bench.py``'s settings at its
+    """The production solver profile (the bench's settings at their
     defaults) in ``solve_mode``."""
-    from mpc_arpo_project_tpu_torch.ops import admm
+    from mpc_arpo_project_tpu_torch import bench
 
-    return admm.ADMMSettings(
-        max_iter=max_iter, solve_mode=solve_mode, check_every=25,
-        stall_exit_chunks=12, stall_tighten_chunks=24, adaptive_rho=True,
-        ns_refresh_drift=0.02, ir_steps=1, pallas_tile=32,
-        eig_refresh_cap_div=32, eig_deb_equil_smax=32.0, eig_warm_iters=3,
-        eig_cold_iters=30, eig_compact_chunks=(2, 4, 8, 16, 24))
+    return bench.bench_settings({"BENCH_SOLVE_MODE": solve_mode,
+                                 "BENCH_MAX_ITER": str(max_iter)})
 
 
 def flagship_sim(T_final, sigma=0.75):
-    """The flagship scenario (``bench.py``: radial approach, offset-free,
+    """The flagship scenario (the bench's: radial approach, offset-free,
     noise ``sigma`` held 50 steps)."""
-    from mpc_arpo_project_tpu_torch import Noise, SimConditions
+    from mpc_arpo_project_tpu_torch import bench
 
-    return SimConditions(
-        np.array([100.0, 10.0, 0.0, 0.0]), np.array([2.5, 0.0, 0.0, 0.0]),
-        2.5, 10 * np.pi / 180, 1.5, 1.107e-3, 0.5, True, (0.2, 45.0),
-        Noise((sigma, sigma), 50), False, T_final=T_final)
+    return bench.flagship_sim(T_final, sigma)
 
 
 def flagship(T_final, device, dtype, solve_mode="eig", settings_kw=None,
@@ -1675,10 +1675,13 @@ def continuous_agreement(seed, solve_mode):
 # the sweep phase's sizes: chunks of 1024 flagship scenarios (the width of
 # every other cell), two of them (``examples/pod_sweep.py`` runs 4096);
 # the fused study of ``examples/disturb_rej_comp.py --quick`` (sigma 0.7,
-# hold lengths 10, 50, 150 steps, 50 s) with 170 runs a setting, so
-# 2 arms x 3 lengths x 170 = 1020 scenarios in one batch
+# hold lengths 10, 50, 150 steps) with 170 runs a setting, so 2 arms x 3
+# lengths x 170 = 1020 scenarios in one batch, cut from its 50 s to 35 s
+# (70 steps; the batch-composition check's fp64 run too) to leave the
+# bench phase its full depth: flagship scenarios start to terminate from
+# about step 50 (3 of 16 by step 100 in a CPU run)
 SWEEP_TOTAL, SWEEP_CHUNK = 2048, 1024
-STUDY_HOLDS, STUDY_RUNS, STUDY_SIGMA, STUDY_T_FINAL = (10, 50, 150), 170, 0.7, 50.0
+STUDY_HOLDS, STUDY_RUNS, STUDY_SIGMA, STUDY_T_FINAL = (10, 50, 150), 170, 0.7, 35.0
 # the continuous branch of ``chunk_stats``: 20 ticks run (j = 1 .. 20)
 SWEEP_CONT_T_FINAL = 10.5
 
@@ -1748,15 +1751,27 @@ def _study_direct(sim, mpc, fail, debris, seed, **engine_kw):
     return out, engine.nsim, sums[0] / np.maximum(sums[1], 1e-12)
 
 
+def _dryrun():
+    """``graft_entry.dryrun_multichip`` over the process group's one rank:
+    its statistics and its printed line."""
+    from mpc_arpo_project_tpu_torch import graft_entry
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        st = graft_entry.dryrun_multichip(1)
+    return st, buf.getvalue()
+
+
 def sweep_phase(eig_engine, seed):
     """The sweeps on the card over an NCCL process group of one rank: a
     chunked, checkpointed ``run_sweep`` of the flagship 'eig' engine, its
     resume from a checkpoint cut after chunk 0, the batch-composition
-    checks, the fused disturbance-rejection study and the continuous branch
-    of ``chunk_stats``. Every kernel count is set to 0 just before each
-    part and read just after; returns the counts summed over the runs of
-    the sweep path (the sweep, the study and the continuous chunk, not the
-    checks) and the report."""
+    checks, the fused disturbance-rejection study, the continuous branch
+    of ``chunk_stats`` and the entry programs' ``dryrun_multichip``. Every
+    kernel count is set to 0 just before each part and read just after;
+    returns the counts summed over the runs of the sweep path (the sweep,
+    the study, the continuous chunk and the dry run, not the checks) and
+    the report."""
     import torch
     import torch.distributed as dist
     from mpc_arpo_project_tpu_torch.ops import _build
@@ -1944,12 +1959,21 @@ def sweep_phase(eig_engine, seed):
             **cst._asdict())
         log("  [sweep continuous] " + json.dumps(cont_rep))
 
+        # 6. the entry programs' multi-rank dry run, over this group
+        (st_dry, out_dry), wall_dry, dry_launch = part(_dryrun, path=True)
+        if not dry_launch.get("eig_chunk"):
+            raise AssertionError(f"dryrun_multichip launched {dry_launch}")
+        dry_rep = dict(wall_s=wall_dry, launches=dry_launch,
+                       line=out_dry.strip(), **st_dry._asdict())
+        log("  [sweep dryrun_multichip] " + json.dumps(dry_rep))
+
         report = dict(
             backend=dist.get_backend(), world=dist.get_world_size(),
             mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
             config="flagship (bench.py defaults), Nx=50, fp32 'eig', "
                    "T_final=10 s", sweep=sweep, resume=resume,
             composition=composition, study=study_rep, continuous=cont_rep,
+            dryrun_multichip=dry_rep,
             max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     finally:
         dist.destroy_process_group()
@@ -1961,8 +1985,11 @@ def sweep_phase(eig_engine, seed):
 # status-mix tool)
 # ---------------------------------------------------------------------------
 
-# the mixed sweep at its default grid and width, with its --quick depth
+# the mixed sweep at its default grid and width, with its --quick solver
+# cap and its --quick depth cut from 30 s to 20 s (40 steps) to leave the
+# bench phase its full depth
 DRIVERS_B = 1024
+DRIVERS_T_FINAL = 20.0
 # the status-mix cell of the JAX package's recorded fp64 oracle shard
 # (16 scenarios x 600 steps of the reference success-rate configuration)
 ORACLE_ARGS = ["--config", "ref", "--sigma", "0.03", "--runs", "128",
@@ -2029,7 +2056,7 @@ def drivers_phase():
 
     # a. the mixed sweep at full width
     settings = ms.settings(quick=True)
-    cells = ms.grid(ms.RU_SCALES, quick=True)
+    cells = ms.grid(ms.RU_SCALES, T_final=DRIVERS_T_FINAL, quick=True)
     rng = np.random.RandomState(ms.SEED)
     engines, totals = [], {}
     build_s = 0.0
@@ -2143,6 +2170,10 @@ def drivers_phase():
 # 600 ticks of 500 substeps, at the width of every other cell
 FULLSCALE_T = 300.0
 FULLSCALE_B = 1024
+# the depth of (a)'s B=1024 run, cut from the tool's 300 s to leave the
+# bench phase its full depth: past 150 s the few scenarios left run the
+# few-live-slot chunks they ran from 70 s on (under 19% alive)
+FULLSCALE_B1024_T = 150.0
 ARTIFACTS = os.path.join(ROOT, "artifacts")
 # the JAX package's TPU v5e record of its production run (B=8, 'chol' fp32)
 CONTC_RECORD = os.path.join(ARTIFACTS, "contC_tpu_r5.json")
@@ -2204,13 +2235,14 @@ def _check_bookkeeping(engine, out):
 
 
 def _fullscale_part(start, stop, card):
-    """(a): main path 4's engine uncut at B=1024, then the command line's
-    own engine at B=8 beside the JAX package's TPU record."""
+    """(a): main path 4's engine at B=1024 for 150 s, then the command
+    line's own engine at B=8 (300 s) beside the JAX package's TPU
+    record."""
     import torch
     from mpc_arpo_project_tpu_torch.rollout import continuous
     from mpc_arpo_project_tpu_torch.tools import continuous_fullscale as cf
 
-    engine = radial_c(FULLSCALE_T, "cuda", torch.float32, "eig")
+    engine = radial_c(FULLSCALE_B1024_T, "cuda", torch.float32, "eig")
     gen = torch.Generator(device="cuda").manual_seed(13)
     draws = continuous.make_noise_draws(engine, gen, FULLSCALE_B)
     t0 = start()
@@ -2346,9 +2378,9 @@ def _refsim_part(summary):
 
 def oracle_phase():
     """The oracle tools on the card: (a) ``fullscale_record`` of main path
-    4's engine (radialC, fp32 'eig', max_iter 1000) at T_final 300 s and
-    B=1024, then of the command line's own engine ('chol' fp32, B=8) beside
-    the JAX package's TPU record; (b) the port's fp64 'chol' engine at T=300
+    4's engine (radialC, fp32 'eig', max_iter 1000) at T_final 150 s and
+    B=1024, then of the command line's own engine ('chol' fp32, B=8,
+    300 s) beside the JAX package's TPU record; (b) the port's fp64 'chol' engine at T=300
     s on the card against the NumPy oracle ``simulate_continuous`` on the
     JAX tool's ``RandomState(11)`` draws; (c) ``deviation_bench.replay`` of
     the 60 recorded QPs in 'eig' fp32, 'pallas' fp32 and 'chol' fp64, the
@@ -2608,6 +2640,126 @@ def dissection_phase():
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# the bench (``mpc_arpo_project_tpu_torch/bench.py``) and the entry step
+# (``mpc_arpo_project_tpu_torch/graft_entry.py``)
+# ---------------------------------------------------------------------------
+
+# bench.py's width; its depth (300 steps) comes with its defaults
+BENCH_B = 1024
+# the JAX package's bench.py 'eig' status mix of alive steps on a TPU v5e
+# (``BENCH_r05.json``: B=1024, 300 steps, its own draws)
+TPU_BENCH_MIX = {"SOLVED": 0.6694, "MAX_ITER": 0.2126, "PINF": 0.1181}
+# the windows of control steps the bench's status mix is also read in
+BENCH_WINDOWS = ((0, 20), (20, 50), (50, 100), (100, 200), (200, 300))
+
+
+def _window_mix(out, lo, hi):
+    """Alive steps, status shares and mean ADMM iterations a step of the
+    control steps ``lo`` to ``hi`` of a rollout."""
+    from mpc_arpo_project_tpu_torch.bench import STATUS_NAMES
+
+    status = out.status[lo:hi].cpu()
+    alive = out.ctrl_seq[lo:hi].cpu() > 0
+    n = int(alive.sum())
+    return dict(steps=f"{lo}-{hi}", alive_steps=n, **{
+        name: int((status[alive] == code).sum()) / max(n, 1)
+        for code, name in STATUS_NAMES.items() if code},
+        mean_admm_iters=float(out.iters[lo:hi].double().mean()))
+
+
+def bench_phase():
+    """The bench's flagship at full width and depth on the card: its
+    defaults ('eig', fp32), B=1024, 300 steps, through ``bench.run``'s
+    timed and latency passes (the kernels are built by then, so the first
+    pass is not repeated). Every kernel count is set to 0 just before and
+    read just after. Alive steps, no UNSOLVED alive step and ``eig_chunk``
+    launches are asserted; the status mix is printed beside the JAX
+    package's TPU record (other draws: not held), and by window of steps.
+    Then ``entry()``'s step on the card against the CPU. Returns the
+    counts and the report."""
+    import torch
+    from mpc_arpo_project_tpu_torch import bench
+
+    counters = _counters()
+    settings = bench.bench_settings({})
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = bench.run(settings, BENCH_B, False, "cuda", first_pass=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters(counters)
+    s = bench.summarize(r.out, r.engine, BENCH_B, r.wall, r.seg_times)
+    if r.engine.nsim != 300:
+        raise AssertionError(f"the bench ran {r.engine.nsim} steps, not 300")
+    if s["alive_steps"] <= 0:
+        raise AssertionError("the bench has no alive step")
+    if s["status_hist"]["UNSOLVED"]:
+        raise AssertionError(f"{s['status_hist']['UNSOLVED']} alive steps "
+                             "UNSOLVED")
+    if launches["eig_chunk"] <= 0:
+        raise AssertionError("the bench launched no eig_chunk kernel")
+    mix = s["status_mix_alive"]
+    apart = {k: mix[k] - v for k, v in TPU_BENCH_MIX.items()}
+    rep = dict(
+        config=f"bench defaults: flagship Nx=50, fp32 'eig', B={BENCH_B}, "
+               f"{r.engine.nsim} steps", phase_wall_s=wall, launches={
+                   k: v for k, v in launches.items() if v},
+        # the counts cover the timed and the latency pass
+        eig_chunk_per_step=launches["eig_chunk"] / (2 * r.engine.nsim),
+        max_memory_allocated_bytes=r.max_memory_allocated_bytes,
+        **s, tpu_v5e_record_mix=TPU_BENCH_MIX,
+        mix_minus_tpu_record=apart,
+        more_than_3_points_apart=[k for k, v in apart.items()
+                                  if abs(v) > 0.03],
+        windows=[_window_mix(r.out, lo, hi) for lo, hi in BENCH_WINDOWS])
+    log("  [bench] " + json.dumps(rep))
+    log(f"  [bench] status mix SOLVED / MAX_ITER / PINF: card "
+        f"{mix['SOLVED']} / {mix['MAX_ITER']} / {mix['PINF']}, the JAX "
+        f"package's TPU v5e record (BENCH_r05.json, other draws) "
+        f"{TPU_BENCH_MIX['SOLVED']} / {TPU_BENCH_MIX['MAX_ITER']} / "
+        f"{TPU_BENCH_MIX['PINF']}")
+    del r
+    rep["entry"] = entry_agreement()
+    return launches, rep
+
+
+def entry_agreement():
+    """``entry()``'s step (B=8, Nx=40, 'eig') on the card against the CPU
+    from the same carry: in fp64, statuses, controller codes and
+    ``done_iters`` equal and the state within 1e-6 (``_agree``'s rule); in
+    fp32 (``entry()``'s default) a finite state and alive statuses in
+    1..4, its distance from the CPU printed."""
+    import torch
+    from mpc_arpo_project_tpu_torch import graft_entry
+
+    rep = {}
+    for dtype in (torch.float64, torch.float32):
+        steps = []
+        for device in ("cuda", "cpu"):
+            fn, (carry, step_in) = graft_entry.entry(device=device,
+                                                     dtype=dtype)
+            new, out = fn(carry, step_in)
+            steps.append((new, out))
+        (g, go), (c, co) = steps
+        same = {name: torch.equal(go[k].cpu(), co[k]) for k, name in
+                ((5, "status"), (4, "ctrl_seq"), (7, "done_iters"))}
+        dx = float((g.x_true.cpu() - c.x_true).abs().max())
+        finite = bool(torch.isfinite(g.x_true).all())
+        rep[str(dtype)[6:]] = dict(equal=same, max_abs_x_true_diff=dx,
+                                   status=go[5].tolist())
+        if not finite or not ((go[5] >= 1) & (go[5] <= 4)).all():
+            raise AssertionError(f"entry() {dtype} on the card: status "
+                                 f"{go[5].tolist()}, finite {finite}")
+        if dtype == torch.float64 and (not all(same.values()) or dx > 1e-6):
+            raise AssertionError(f"entry() fp64, card against CPU: {same}, "
+                                 f"x_true by {dx}")
+    log("  [entry] " + json.dumps(rep))
+    return rep
+
+
 def in_track_agreement(seed):
     """4 fp64 control steps of the mixed sweep's noisy offset-free in-track
     engine ('eig') at B=8: the card (kernels) against the CPU (twins)."""
@@ -2743,7 +2895,16 @@ def main() -> int:
     log(f"  dissection done at {time.perf_counter() - t_start:.1f} s "
         f"(the phase {dissection_report['wall_s']:.1f} s)")
 
-    # 14. small end-to-end agreement, card against CPU
+    # 14. the bench at full width and depth, and the entry step
+    t0 = time.perf_counter()
+    counts, bench_report = bench_phase()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    bench_report["wall_s"] = time.perf_counter() - t0
+    log(f"  bench done at {time.perf_counter() - t_start:.1f} s "
+        f"(the phase {bench_report['wall_s']:.1f} s)")
+
+    # 15. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(13, "eig", settings_kw=dict(eig_rescue_mode="near"))
     small_agreement(4, "pallas")
@@ -2754,7 +2915,7 @@ def main() -> int:
     continuous_agreement(10, "chol")
     in_track_agreement(12)
 
-    # 15. import check
+    # 16. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2768,6 +2929,7 @@ def main() -> int:
     print("drivers: " + json.dumps(drivers_report))
     print("oracle: " + json.dumps(oracle_report))
     print("dissection: " + json.dumps(dissection_report))
+    print("bench: " + json.dumps(bench_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,10 @@ continuous-time closed loop on the nonlinear two-body plant
 the CW model (``models.cw``), the dynamic constraints (``ops.constraints``),
 the chunk-parts timing probe (``tools.kernel_probe`` and its CUDA
 kernels), the Monte-Carlo sweeps and studies over ``torch.distributed``
-ranks (``parallel``: ``mc``, ``mesh``) and the utilities (``utils``:
-timing, numeric guards, run archives). Entry points run on the CUDA
+ranks (``parallel``: ``mc``, ``mesh``), the utilities (``utils``:
+timing, numeric guards, run archives) and the repository's two top-level
+programs (``bench``: the flagship measurement; ``graft_entry``: one
+control step and a multi-rank dry run). Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """
 

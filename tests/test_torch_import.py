@@ -2,8 +2,9 @@
 importing the package and every ported module in a fresh interpreter leaves
 ``jax``, ``mpc_arpo_project_tpu`` (and its submodules), the JAX package's
 ``tools`` and the top-level ``examples`` out of ``sys.modules``. The
-package, its drivers and the status-mix tool run without matplotlib: only
-``viz`` (which they import inside their plot steps) loads it."""
+package, its drivers, its entry programs and the status-mix tool run
+without matplotlib: only ``viz`` (which they import inside their plot
+steps) loads it."""
 
 import os
 import subprocess
@@ -16,7 +17,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import mpc_arpo_project_tpu_torch\n"
-        "from mpc_arpo_project_tpu_torch import config\n"
+        "from mpc_arpo_project_tpu_torch import bench, config, graft_entry\n"
         "from mpc_arpo_project_tpu_torch.ops import _build, admm, admm_eig, "
         "admm_pallas, constraints, host_synthesis, kalman, qp_builder, "
         "riccati, rk4_tick, ukf\n"
@@ -58,6 +59,7 @@ def test_drivers_run_without_matplotlib():
     code = (
         "import sys\n"
         "import mpc_arpo_project_tpu_torch\n"
+        "from mpc_arpo_project_tpu_torch import bench, graft_entry\n"
         "from mpc_arpo_project_tpu_torch.tools import status_mix\n"
         "from mpc_arpo_project_tpu_torch.tools import continuous_fullscale, "
         "deviation_bench, osqp_ref, ref_sim\n"

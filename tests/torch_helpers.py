@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_arpo_project_tpu_torch.config import (
-    Debris, FailsafeParams, MPCParams, Noise, SimConditions)
+from mpc_arpo_project_tpu_torch import bench
+from mpc_arpo_project_tpu_torch.config import Noise, SimConditions
 from mpc_arpo_project_tpu_torch.ops import admm, admm_eig
 from mpc_arpo_project_tpu_torch.ops.host_synthesis import (
     discretize_np, synth_gains_np)
@@ -48,18 +48,9 @@ def one_torch_thread():
 
 
 def flagship_parts(Nx=40):
-    """MPC weights, failsafe gains and the debris box of the flagship."""
-    v_ecr = 50000.0 * np.ones(5)
-    v_ecr[-2] *= -1
-    v_ecr[-1] = 0.0
-    mpc = MPCParams(
-        8e2 * np.diag([0.2 ** 2, 10 ** 2, 3.8 ** 2, 900.0]),
-        1000 ** 2 * np.eye(2), 5 ** 2 * np.eye(5), v_ecr,
-        {"Nx": Nx, "Nc": 5, "Nb": 5}, (0.2, 0.2))
-    fail = FailsafeParams(
-        0.005 * np.diag([0.0001, 1, 100000.0, 1.0, 0.01]), 100 * np.eye(2),
-        np.eye(1, 4), np.zeros((2, 2)))
-    return mpc, fail, Debris((40.0, 0.0), 5.0, 20.0)
+    """MPC weights, failsafe gains and the debris box of the flagship (the
+    bench's configuration at horizon ``Nx``)."""
+    return bench.flagship_parts(Nx)
 
 
 def sim_conditions(in_track=False, noise=None, T_final=150.0):
