@@ -30,10 +30,14 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
      cases are timed in fp32 and fp64 beside ``torch.linalg.inv`` of the
      same M;
 4. the chunk-parts probe (``tools/kernel_probe.py`` of the port) at its
-   flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32):
-   each of its six kernels against its twin on unit-gain inputs (launch
-   counted), then timed as the probe times it on the same inputs and on
-   the original's scales, with its bound and useful TF/s;
+   flagship shapes (B=1024, bt=32, nz=256, m=512, 25 iterations, fp32
+   inputs), in each of the original's precisions ('highest', 'high',
+   'default'): each of its six kernels against its twin on unit-gain
+   inputs, and the bf16-rounding ones also on inputs where their
+   arithmetic is exact (launch counted), then timed as the probe times it
+   on the same inputs ('highest' also on the original's scales), with its
+   bound at the precision's peak, the stream floor of its matrix, the
+   groups the card holds at once and useful TF/s;
 5. the continuous plant's tick kernel ``rk4_tick`` (500 RK4 substeps,
    B=1024, the radialC plant) against its twin on states spread over the
    approach with scenarios placed to dock and to terminate within the
@@ -645,20 +649,33 @@ def admm_chunk_bound(args, kw, outs):
     return _bound(flops, _bytes(list(args) + list(outs), live / B, B))
 
 
-def probe_bound(name, inputs, n_it):
-    """One probe kernel: the function's useful MACs, each input read once
-    and the output written once. Also returns the time at fp32 peak of the
-    MACs the kernel executes (the bf16 variant's two limb products, the
-    block-diagonal variant's bt-fold masked MACs), that layout's cost."""
+PEAK_BF16_TC = 989e12  # dense bf16 tensor-core peak, fp32 accumulate
+
+
+def probe_bound(name, inputs, n_it, precision="highest"):
+    """One probe kernel in ``precision``: the function's useful MACs at
+    that precision's peak (fp32 on the CUDA cores at "highest"; one bf16
+    tensor-core pass at "default", three at "high"; the bf16 variant names
+    bf16 itself, so two passes in every precision), or each input read once
+    and the output written once, whichever is larger. Also returns the time
+    at the fp32 peak of the MACs the "highest" kernels execute (the bf16
+    variant's two limb products, the block-diagonal variant's bt-fold
+    masked MACs), and the floor of streaming the variant's matrix from HBM
+    in every iteration."""
     from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
     v = kp.variant(name, inputs)
-    x = inputs["x"]
+    x, mat = inputs["x"], inputs[v.operand]
     n = 2.0 * x.shape[0] * n_it
-    bound_ms, bound_by = _bound(n * v.macs,
-                                _bytes([x, inputs[v.operand], x], 1.0,
-                                       x.shape[0]))
-    return bound_ms, bound_by, n * v.executed / PEAK_FP32 * 1e3
+    passes = (2 if name == "minv_bf16" else
+              {"highest": 0, "high": 3, "default": 1}[precision])
+    bound_ms, bound_by = _bound(
+        n * v.macs * max(passes, 1),
+        _bytes([x, mat, x], 1.0, x.shape[0]),
+        PEAK_FP32 if passes == 0 else PEAK_BF16_TC)
+    stream_ms = mat.numel() * mat.element_size() * n_it / HBM_BYTES_S * 1e3
+    return (bound_ms, bound_by, n * v.executed / PEAK_FP32 * 1e3,
+            stream_ms)
 
 
 def ns_bound(n, rows, n_iter, tensors, B, stack=True):
@@ -1062,46 +1079,68 @@ def check_pallas_kernels(engine, B, record=None):
 
 
 def check_probe(B=1024, bt=32, n_it=25):
-    """The six chunk-parts probe kernels at the probe's flagship shapes:
-    each against its twin (unit-gain inputs, per-row tolerance 1e-5, launch
-    counted; ``kernel_probe.check_against_twin``), then timed as the probe
-    times it on the same inputs, beside its twin, its bound, and the
-    kernel's time on the original's scales (where the matvec and stack7
-    iterates reach fp32's denormals). Returns the probe's JSON entry
-    (without launches)."""
+    """The six chunk-parts probe kernels at the probe's flagship shapes, in
+    each of the original's precisions: each against its twin
+    (``kernel_probe.check_against_twin`` on unit-gain inputs: per-row 1e-5;
+    "high" over the iterations ``HIGH_TOL``; the bf16 variant and every
+    "default" kernel at one iteration there and over ``n_it`` on
+    ``exact_inputs``; launch counted), then timed as the probe times it on
+    the same inputs, beside its twin, its bound, the stream floor and the
+    groups the card holds at once; at "highest" also on the original's
+    scales (where the matvec and stack7 iterates reach fp32's denormals).
+    Returns the probe's JSON entry (without launches): the six "highest"
+    kernels, as before."""
     from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
 
+    t0 = time.perf_counter()
     unit = kp.make_inputs(B, bt, unit_gain=True)
     orig = kp.make_inputs(B, bt)
     nz, m = unit["x"].shape[1], unit["a0"].shape[0]
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
     by = {"operations": 0.0, "bytes": 0.0}
-    for name, v in kp.variants(nz, m, bt).items():
-        err = kp.check_against_twin(name, unit, n_it)
-        ms = kp.time_ms(name, unit, n_it)
-        plain_ms = kp.time_ms(name, unit, n_it, twin=True)
-        orig_ms = kp.time_ms(name, orig, n_it)
-        bound_ms, bound_by, executed_ms = probe_bound(name, unit, n_it)
-        tf = 2 * v.macs * B * n_it / (ms * 1e-3) / 1e12
-        extra = ""
-        if v.executed != v.macs:
-            extra += f", executed MACs at fp32 peak {executed_ms:.3f} ms"
-        if v.operand in ("minv", "mflat"):
-            floor = unit["minv"].numel() * 4 * n_it / HBM_BYTES_S * 1e3
-            extra += f", Minv streamed every iteration {floor:.3f} ms"
-        log(f"  probe {v.label}: {ms:8.3f} ms/chunk {ms / n_it * 1e3:8.1f} "
-            f"us/iter useful {tf:6.2f} TF/s; original's scales {orig_ms:.3f}"
-            f" ms; twin {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
-            f"({bound_by}){extra}; vs twin " + json.dumps(err))
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += bound_ms
-        total["max_abs_err"] = max(total["max_abs_err"], err["max_abs_err"])
-        by[bound_by] += bound_ms
-    log(f"probe, six kernels one launch each (B={B}, bt={bt}, {n_it} "
-        f"iterations, fp32): kernels {total['ms']:.3f} ms, twins "
-        f"{total['plain_ms']:.3f} ms, bounds {total['bound_ms']:.3f} ms "
-        "(ms per chunk: best of 3 runs of 10 launches, CUDA events)")
+    for precision in kp.PRECISIONS:
+        sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for name, v in kp.variants(nz, m, bt).items():
+            err = kp.check_against_twin(name, unit, n_it, precision)
+            ms = kp.time_ms(name, unit, n_it, precision=precision)
+            # the twins of "high" and "default" cost 5-50 ms a launch
+            fast = precision == "highest"
+            plain_ms = kp.time_ms(name, unit, n_it, loop=10 if fast else 3,
+                                  reps=3 if fast else 2, twin=True,
+                                  precision=precision)
+            bound_ms, bound_by, executed_ms, stream_ms = probe_bound(
+                name, unit, n_it, precision)
+            groups = kp.capacity(name, precision, bt, nz, m)
+            tf = 2 * v.macs * B * n_it / (ms * 1e-3) / 1e12
+            extra = ""
+            if fast:
+                extra += (f"; original's scales "
+                          f"{kp.time_ms(name, orig, n_it):.3f} ms")
+                if v.executed != v.macs:
+                    extra += (f"; executed MACs at fp32 peak "
+                              f"{executed_ms:.3f} ms")
+            log(f"  probe {v.label} [{precision}]: {ms:8.3f} ms/chunk "
+                f"{ms / n_it * 1e3:8.1f} us/iter useful {tf:6.2f} TF/s; twin "
+                f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}); "
+                f"matrix streamed every iteration {stream_ms:.3f} ms; "
+                f"{groups} groups at once{extra}; vs twin " + json.dumps(err))
+            sums["ms"] += ms
+            sums["plain_ms"] += plain_ms
+            sums["bound_ms"] += bound_ms
+            if fast:
+                total["ms"] += ms
+                total["plain_ms"] += plain_ms
+                total["bound_ms"] += bound_ms
+                total["max_abs_err"] = max(total["max_abs_err"],
+                                           err["max_abs_err"])
+                by[bound_by] += bound_ms
+        log(f"probe [{precision}], six kernels one launch each (B={B}, "
+            f"bt={bt}, {n_it} iterations, fp32 inputs): kernels "
+            f"{sums['ms']:.3f} ms, twins {sums['plain_ms']:.3f} ms, bounds "
+            f"{sums['bound_ms']:.3f} ms (ms per chunk: best of 3 runs of 10 "
+            "launches, the twins of high and default best of 2 of 3; CUDA "
+            "events)")
+    log(f"probe phase {time.perf_counter() - t0:.1f} s")
     return dict(name="kernel_probe", route="cuda",
                 source="mpc_arpo_project_tpu_torch/csrc/kernel_probe.cu",
                 replaces="tools/kernel_probe.py:142",

@@ -16,11 +16,13 @@ For the 'pallas' kernels (``admm_chunk``, ``ns_fused``,
 (Nx=40 unpadded, nz=201, m=406, B=8) through ``pallas_inputs``. Tolerance
 1e-10 per row in fp64: each kernel and its twin run the same arithmetic in
 another summation order, over 25 chunk iterations or 45 Newton–Schulz
-steps. The six probe kernels (fp32 only) run on the probe's unit-gain
-inputs at nz=32, m=64, B=8, bt=4 and at a ragged nz=40 (B=6, bt=3), held to
-their twins to 1e-5 per row (``kernel_probe.check_against_twin``; the bf16
-kernel at one iteration, and over more on matrices where its arithmetic is
-exact). ``rk4_tick`` (one tick of the continuous plant's 500 RK4 substeps)
+steps. The six probe kernels (fp32 inputs, in each of the three
+precisions) run on the probe's unit-gain inputs at nz=32, m=64, B=8, bt=4,
+at a ragged nz=40 (B=6, bt=3) and at nz=38 (rows not 16-byte multiples:
+the cp.async staging), held to their twins to 1e-5 per row
+(``kernel_probe.check_against_twin``: 'high' to ``HIGH_TOL`` over more than
+one iteration; the bf16 kernel and the 'default' ones at one iteration,
+and over more on matrices where their arithmetic is exact). ``rk4_tick`` (one tick of the continuous plant's 500 RK4 substeps)
 runs on ``tick_inputs`` against its twin on the card: in fp64 the masks
 (alive, termination substep, success) equal and the states within 1e-9;
 in fp32 each scenario's states within 1e-4 of the fp32 twin or no farther
@@ -396,17 +398,21 @@ def test_cuda_pallas_wrappers_reject_what_the_kernels_do_not_take(gpu,
     assert counts() == n0
 
 
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("n_it", [1, 25])
-@pytest.mark.parametrize("shape", [(8, 4, 32, 64), (6, 3, 40, 72)])
+@pytest.mark.parametrize("shape", [(8, 4, 32, 64), (6, 3, 40, 72),
+                                   (4, 2, 38, 70)])
 @pytest.mark.parametrize("name", ["matvec_pair", "minv_rowvec", "minv_lhs",
                                   "minv_bf16", "minv_blockdiag", "stack7"])
-def test_cuda_probe_kernel_matches_twin(gpu, name, shape, n_it):
-    """Each probe kernel against its twin: rows within 1e-5, one launch
-    counted per call (the bf16 kernel at one iteration on these inputs,
-    and over ``n_it`` on ``exact_bf16_minv``'s)."""
+def test_cuda_probe_kernel_matches_twin(gpu, name, shape, n_it, precision):
+    """Each probe kernel against its twin in each precision: rows within
+    1e-5, one launch counted per call ('high' within ``HIGH_TOL`` over
+    ``n_it``; the bf16 kernel and every 'default' one at one iteration on
+    these inputs, and over ``n_it`` on ``exact_inputs``, where their
+    arithmetic is exact)."""
     B, bt, nz, m = shape
     inputs = kp.make_inputs(B, bt, nz, m, device=gpu, unit_gain=True)
-    kp.check_against_twin(name, inputs, n_it)
+    kp.check_against_twin(name, inputs, n_it, precision)
 
 
 def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take(gpu):
@@ -418,7 +424,13 @@ def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take(gpu):
         kp.minv_rowvec(inputs["x"], inputs["minv"].cpu(), 1)
     with pytest.raises(ValueError, match="bt"):
         kp.minv_blockdiag(inputs["x"], inputs["mflat"], 1, 3)
-    assert kp.minv_rowvec.launches == n0
+    with pytest.raises(ValueError, match="precision"):
+        kp.minv_rowvec(inputs["x"], inputs["minv"], 1, precision="fastest")
+    wide = kp.make_inputs(8, 4, 264, 64, device=gpu)
+    n7 = kp.stack7.launches
+    with pytest.raises(ValueError, match="nz"):
+        kp.stack7(wide["x"], wide["s7"], 1)
+    assert kp.minv_rowvec.launches == n0 and kp.stack7.launches == n7
 
 
 def test_cuda_compaction_is_bit_exact(gpu):

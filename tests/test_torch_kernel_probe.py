@@ -2,8 +2,10 @@
 each plain twin against a numpy transcription of the matching Pallas body
 of the JAX package's ``tools/kernel_probe.py`` (its kernels are closures
 inside ``main()`` pinned to TPU memory, so no test can call them), in fp64
-and fp32; the bf16 twin against its exact two-limb arithmetic; and the
-probe's refusals. Small sizes: nz=32, m=64, B=8, bt=4, 3 iterations, on
+and fp32, in each of the original's three precisions (JAX on the CPU
+computes every precision in fp32, so the 'high' and 'default' passes are
+written out in numpy: bf16 operands and limbs by the bits); the bf16 twin
+against its exact two-limb arithmetic; and the probe's refusals. Small sizes: nz=32, m=64, B=8, bt=4, 3 iterations, on
 the unit-gain inputs (the original's scales underflow fp32 within the
 probe's 25 iterations). The kernels themselves are held against the twins
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -20,41 +22,42 @@ B, BT, NZ, M, N_IT = 8, 4, 32, 64, 3
 
 
 # numpy transcriptions of the Pallas bodies (tools/kernel_probe.py:42-108),
-# tile by tile over the grid (B // bt,)
+# tile by tile over the grid (B // bt,); ``dot`` is the body's jnp.dot at its
+# precision (``np_dot``)
 
 def _tiles(x, bt, body):
     return np.concatenate([body(i, x[i * bt:(i + 1) * bt])
                            for i in range(x.shape[0] // bt)], 0)
 
 
-def np_matvec(x, a0, n_it, bt):
+def np_matvec(x, a0, n_it, bt, dot=np.matmul):
     def body(_, xt):
         for _ in range(n_it):
-            y = xt @ a0.T
-            xt = xt.dtype.type(1e-3) * (y @ a0)
+            y = dot(xt, a0.T)
+            xt = xt.dtype.type(1e-3) * dot(y, a0)
         return xt
     return _tiles(x, bt, body)
 
 
-def np_minv(x, minv, n_it, bt):
+def np_minv(x, minv, n_it, bt, dot=np.matmul):
     def body(i, xt):
         for _ in range(n_it):
-            xt = np.concatenate([xt[p][None, :] @ minv[i * bt + p]
+            xt = np.concatenate([dot(xt[p][None, :], minv[i * bt + p])
                                  for p in range(bt)], 0)
         return xt
     return _tiles(x, bt, body)
 
 
-def np_minv_lhs(x, minv, n_it, bt):
+def np_minv_lhs(x, minv, n_it, bt, dot=np.matmul):
     def body(i, xt):
         for _ in range(n_it):
-            xt = np.concatenate([(minv[i * bt + p] @ xt[p][:, None]).T
+            xt = np.concatenate([dot(minv[i * bt + p], xt[p][:, None]).T
                                  for p in range(bt)], 0)
         return xt
     return _tiles(x, bt, body)
 
 
-def np_minv_bd(x, mflat, n_it, bt):
+def np_minv_bd(x, mflat, n_it, bt, dot=np.matmul):
     nz = x.shape[1]
     row = np.arange(bt)[:, None] * np.ones((1, bt * nz), dtype=np.int32)
     col = np.arange(bt * nz)[None, :] * np.ones((bt, 1), dtype=np.int32)
@@ -63,17 +66,17 @@ def np_minv_bd(x, mflat, n_it, bt):
     def body(i, xt):
         for _ in range(n_it):
             xe = np.concatenate([xt] * bt, axis=1) * maskf
-            xt = xe @ mflat[i]
+            xt = dot(xe, mflat[i])
         return xt
     return _tiles(x, bt, body)
 
 
-def np_stack(x, s7, n_it, bt):
+def np_stack(x, s7, n_it, bt, dot=np.matmul):
     nz = x.shape[1]
 
     def body(_, xt):
         for _ in range(n_it):
-            xs = xt @ s7
+            xs = dot(xt, s7)
             acc = None
             for t in range(7):
                 term = xt.dtype.type(0.1 + t) * xs[:, t * nz:(t + 1) * nz]
@@ -88,6 +91,27 @@ def bf16_np(a):
     u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
     u = (u + (((u >> 16) & 1) + np.uint32(0x7FFF))) & np.uint32(0xFFFF0000)
     return u.view(np.float32)
+
+
+def bf16_round_np(a):
+    """``a`` rounded to bf16 from its fp32 value, in ``a``'s dtype."""
+    return bf16_np(a.astype(np.float32)).astype(a.dtype)
+
+
+def np_dot(precision):
+    """jnp.dot at ``precision`` on a TPU: "highest" the product itself;
+    "default" one bf16 pass (operands rounded to bf16, products exact,
+    sums in the operands' dtype); "high" bf16_3x, hi hi + hi lo + lo hi of
+    the operands' bf16 limbs (lo = bf16 of the remainder)."""
+    def dot(a, b):
+        if precision == "highest":
+            return a @ b
+        ah, bh = bf16_round_np(a), bf16_round_np(b)
+        if precision == "default":
+            return ah @ bh
+        al, bl = bf16_round_np(a - ah), bf16_round_np(b - bh)
+        return ah @ bh + ah @ bl + al @ bh
+    return dot
 
 
 def np_minv_bf16(x, minv, n_it, bt):
@@ -184,12 +208,106 @@ def test_original_scales_underflow_and_unit_gain_does_not():
         assert float(y.abs().amax(1).min()) > 1e-6, name
 
 
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12),
+                                        (torch.float32, 2e-6)])
 @pytest.mark.parametrize("precision", ["high", "default"])
-def test_tpu_precisions_raise(precision):
+@pytest.mark.parametrize("name", sorted(kp.variants(NZ, M, BT)))
+def test_twin_precision_matches_pass_definition(name, precision, dtype, tol):
+    """The 'high' and 'default' twins against the numpy transcription with
+    the pass written out (``np_dot``; the bf16 variant's own body in every
+    precision). fp64: 1e-12 per row over 3 iterations (the same exact limb
+    products in another summation order). fp32: 'high' 2e-6 per row at one
+    iteration, as 'highest', and 3e-5 over 3: the limbs carry x to 2^-17 of
+    each element, and where a 1-ulp difference of two summation orders
+    moves an element's hi limb across a bf16 rounding boundary that
+    remainder changes by up to 2^-16 of the element (measured here: 1.1e-7
+    at one iteration, 7.9e-6 over 3 for minv_lhs); 'default' re-rounds x
+    (and matvec_pair's y) to bf16, where such a difference can flip a
+    rounding, so it is held to 2e-6 at one iteration (matvec_pair to
+    ``MATVEC_DEFAULT_ONE_IT_TOL``, its y being rounded inside the
+    iteration) and bit for bit over 3 on ``exact_inputs``."""
+    inp = _inputs(dtype)
+    runs = [(inp, N_IT, tol)]
+    if name == "minv_bf16":
+        want_fn = lambda i, k: np_minv_bf16(i["x"].numpy(), i["minv"].numpy(),
+                                            k, BT)
+        runs = [(inp, 1, 1e-6 if dtype == torch.float32 else 1e-13)]
+    else:
+        fn, operand = TRANSCRIPTIONS[name]
+        want_fn = lambda i, k: fn(i["x"].numpy(), i[operand].numpy(), k, BT,
+                                  np_dot(precision))
+        if precision == "default" and dtype == torch.float32:
+            one = kp.MATVEC_DEFAULT_ONE_IT_TOL if name == "matvec_pair" \
+                else tol
+            runs = [(inp, 1, one), (kp.exact_inputs(inp), N_IT, 0.0)]
+        elif dtype == torch.float32:
+            runs = [(inp, 1, tol), (inp, N_IT, 3e-5)]
+    for i, k, t in runs:
+        got = kp.call(name, i, k, twin=True, precision=precision)
+        assert got.dtype == dtype and got.shape == (B, NZ)
+        assert _row_rel(got, want_fn(i, k)) <= t, (k, t)
+    # on the CPU the entry is the twin, and launches nothing
+    n0 = getattr(kp, name).launches
+    assert torch.equal(kp.call(name, inp, N_IT, precision=precision),
+                       kp.call(name, inp, N_IT, twin=True,
+                               precision=precision))
+    assert getattr(kp, name).launches == n0
+
+
+@pytest.mark.parametrize("name", sorted(TRANSCRIPTIONS))
+def test_default_on_exact_inputs_is_exact(name):
+    """``exact_inputs`` make one bf16 pass exact: over 25 iterations the
+    fp32 'default' twin equals the numpy transcription (other summation
+    orders, fp32) bit for bit, stays finite and normal, and differs from
+    'highest' (the rounding of x to bf16 is seen)."""
+    inp = kp.exact_inputs(_inputs(torch.float32))
+    fn, operand = TRANSCRIPTIONS[name]
+    got = kp.call(name, inp, 25, twin=True, precision="default")
+    want = fn(inp["x"].numpy(), inp[operand].numpy(), 25, BT,
+              np_dot("default"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert float(got.abs().amax(1).min()) > 1e-6
+    assert not torch.equal(got, kp.call(name, inp, 25, twin=True))
+
+
+@pytest.mark.parametrize("precision", kp.PRECISIONS)
+def test_run_and_main_take_every_precision(monkeypatch, precision):
+    """``run`` and ``main`` accept all three precisions and carry them to
+    every variant; here on a stand-in device (the CPU, where the entries are
+    the twins) and a stand-in timer that runs the variant once."""
+    seen = []
+
+    def fake_time(name, inputs, n_it, loop=10, reps=3, twin=False,
+                  precision="highest"):
+        y = kp.call(name, inputs, 1, twin, precision)
+        assert torch.isfinite(y).all()
+        seen.append((name, precision))
+        return 1.0
+
+    monkeypatch.setattr(kp, "resolve_device", lambda d: torch.device("cpu"))
+    monkeypatch.setattr(kp, "card_line", lambda: "stand-in card, 700.00 W")
+    monkeypatch.setattr(kp, "time_ms", fake_time)
+    lines = []
+    assert kp.run(8, 4, 1, precision=precision, out=lines.append) == 0
+    assert lines[:2] == ["stand-in card, 700.00 W", f"precision {precision}"]
+    assert len(lines) == 8 and not any("FAILED" in ln for ln in lines)
+    assert kp.main(["--precision", precision, "--batch", "8", "--bt", "4",
+                    "--iters", "1"]) == 0
+    assert seen == [(n, precision) for n in kp.variants()] * 2
+
+
+def test_unknown_precision_raises(monkeypatch):
+    monkeypatch.setattr(kp, "resolve_device", lambda d: torch.device("cpu"))
     with pytest.raises(ValueError, match="precision"):
-        kp.run(precision=precision)
-    with pytest.raises(ValueError, match="precision"):
-        kp.main(["--precision", precision, "--batch", "8", "--bt", "4"])
+        kp.run(8, 4, 1, precision="fastest")
+    with pytest.raises(SystemExit):
+        kp.main(["--precision", "fastest"])
+    inp = _inputs(torch.float32)
+    for name in kp.variants(NZ, M, BT):
+        with pytest.raises(ValueError, match="precision"):
+            kp.call(name, inp, 1, precision="fastest")
+        with pytest.raises(ValueError, match="precision"):
+            kp.call(name, inp, 1, twin=True, precision="fastest")
 
 
 def test_entries_refuse_other_devices():
