@@ -82,7 +82,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 11. the drivers users run (``examples``, ``tools/status_mix.py`` of the
    port): the mixed sweep's 10 engines (radial and in-track x R_input
    scales 0.25-4) at B=1024 each, 10,240 scenarios in fp32 'eig' with its
-   ``--quick`` solver cap (max_iter 500) for 20 s (its ``--quick`` depth
+   ``--quick`` solver cap (max_iter 500) for 10 s (its ``--quick`` depth
    is 30 s), through its
    ``grid``, ``scenario_inputs`` and ``engine_stats`` (each engine must
    launch ``eig_chunk``, alive statuses lie in 0..4, and an in-track
@@ -97,7 +97,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
 12. the oracle tools (``tools/continuous_fullscale.py``,
    ``tools/deviation_bench.py``, the status-mix refsim arm of the port):
    (a) ``fullscale_record`` of main path 4's engine (radialC, fp32 'eig',
-   max_iter 1000) for T_final 150 s (300 ticks, 150,000 substeps a
+   max_iter 1000) for T_final 100 s (200 ticks, 100,000 substeps a
    scenario; the tool's horizon, 300 s, runs in the B=8 engine below and
    in (b)) at B=1024: finite states, and each scenario's controller
    codes nonzero exactly on the ticks that started before its termination
@@ -150,7 +150,17 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    statuses, controller codes and ``done_iters`` and the state within
    1e-6, in fp32 finite. Its ``bench:`` line follows the ``dissection:``
    line;
-15. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
+15. the device's time by kernel and its idle share
+   (``tools/profile_step.py`` of the port): the JAX tool's flagship (fp32
+   'eig', B=1024) for 80 steps, ``torch.profiler`` over its default window,
+   steps [60, 80); the trace must hold device events, as many
+   ``eig_chunk`` kernel events as the wrapper counted launches over the
+   window, a busy time (the union over streams) within the window and
+   within the sum of the device's events, and an idle share in [0, 1].
+   Its ``profile:`` line (the idle share, the traced ms per step, the top
+   five device names with ms per step and count, the top three idle-gap
+   host ops) follows the ``bench:`` line;
+16. small agreement: 4 fp64 control steps at B=8 on the card (kernels) and
    on the CPU (twins) must give the same statuses, controller codes,
    termination, success and ``done_iters``, and trajectories within 1e-6;
    for 'eig' (with the 'dual' and the 'near' rho rescue), 'pallas' and
@@ -159,7 +169,7 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    in-track engine ('eig'); and 5 ticks of the continuous loop in fp64 at
    B=8 ('eig' and 'chol'), which must also give the same termination
    substeps;
-16. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
+17. import check: no ``jax``, ``mpc_arpo_project_tpu``, ``tools`` or
    ``examples`` module was loaded.
 
 With ``--ns-dump FILE`` it also saves every ``eig_chunk``, ``admm_chunk``
@@ -168,8 +178,8 @@ the digests of what the kernel returned) for
 ``mpc_arpo_project_tpu_torch/tools/ns_replay.py``, which replays them on
 another tree's kernels and compares bit for bit.
 
-Prints the ``sweep:``, ``drivers:``, ``oracle:``, ``dissection:`` and
-``bench:`` lines and the kernels' JSON line, then ``{"ok": true, ...}``
+Prints the ``sweep:``, ``drivers:``, ``oracle:``, ``dissection:``,
+``bench:`` and ``profile:`` lines and the kernels' JSON line, then ``{"ok": true, ...}``
 as the last line.
 Exits non-zero, with the traceback and without that line, when any phase
 fails or no CUDA device is present.
@@ -2025,10 +2035,11 @@ def sweep_phase(eig_engine, seed):
 # ---------------------------------------------------------------------------
 
 # the mixed sweep at its default grid and width, with its --quick solver
-# cap and its --quick depth cut from 30 s to 20 s (40 steps) to leave the
-# bench phase its full depth
+# cap and its --quick depth cut from 30 s to 10 s (20 steps) to leave the
+# bench and profile phases their full depth (the checks need no more: every
+# engine launches eig_chunk from its first step)
 DRIVERS_B = 1024
-DRIVERS_T_FINAL = 20.0
+DRIVERS_T_FINAL = 10.0
 # the status-mix cell of the JAX package's recorded fp64 oracle shard
 # (16 scenarios x 600 steps of the reference success-rate configuration)
 ORACLE_ARGS = ["--config", "ref", "--sigma", "0.03", "--runs", "128",
@@ -2210,9 +2221,9 @@ def drivers_phase():
 FULLSCALE_T = 300.0
 FULLSCALE_B = 1024
 # the depth of (a)'s B=1024 run, cut from the tool's 300 s to leave the
-# bench phase its full depth: past 150 s the few scenarios left run the
-# few-live-slot chunks they ran from 70 s on (under 19% alive)
-FULLSCALE_B1024_T = 150.0
+# bench and profile phases their full depth: past 100 s the few scenarios
+# left run the few-live-slot chunks they ran from 70 s on (under 19% alive)
+FULLSCALE_B1024_T = 100.0
 ARTIFACTS = os.path.join(ROOT, "artifacts")
 # the JAX package's TPU v5e record of its production run (B=8, 'chol' fp32)
 CONTC_RECORD = os.path.join(ARTIFACTS, "contC_tpu_r5.json")
@@ -2274,7 +2285,7 @@ def _check_bookkeeping(engine, out):
 
 
 def _fullscale_part(start, stop, card):
-    """(a): main path 4's engine at B=1024 for 150 s, then the command
+    """(a): main path 4's engine at B=1024 for 100 s, then the command
     line's own engine at B=8 (300 s) beside the JAX package's TPU
     record."""
     import torch
@@ -2417,7 +2428,7 @@ def _refsim_part(summary):
 
 def oracle_phase():
     """The oracle tools on the card: (a) ``fullscale_record`` of main path
-    4's engine (radialC, fp32 'eig', max_iter 1000) at T_final 150 s and
+    4's engine (radialC, fp32 'eig', max_iter 1000) at T_final 100 s and
     B=1024, then of the command line's own engine ('chol' fp32, B=8,
     300 s) beside the JAX package's TPU record; (b) the port's fp64 'chol' engine at T=300
     s on the card against the NumPy oracle ``simulate_continuous`` on the
@@ -2765,6 +2776,90 @@ def bench_phase():
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# the device's time by kernel and its idle share
+# (``mpc_arpo_project_tpu_torch/tools/profile_step.py``)
+# ---------------------------------------------------------------------------
+
+# the JAX tool's flagship at its width, cut in depth to 80 steps (40 s) so
+# that its default window, steps [60, 80), ends the run
+PROFILE_B = 1024
+PROFILE_T_FINAL = 40.0
+# the JAX tool's default window: segments of 10 steps from the 6th, 2 of them
+PROFILE_START_SEG, PROFILE_SEGS = 6, 2
+# the phase's table: the device's names it keeps
+PROFILE_TOP = 10
+
+
+def profile_phase():
+    """``profile_step`` on the card: the JAX tool's flagship (fp32 'eig',
+    B=1024) for 80 steps, traced over its default window [60, 80). Asserts
+    that the trace holds device events, that its ``eig_chunk`` kernel
+    events equal the wrapper's launches over the window, that the device's
+    busy time (the union over streams) is no more than the window and no
+    more than the sum of its events, and an idle share in [0, 1]. Every
+    kernel count is set to 0 just before and read just after. Returns the
+    counts and the report."""
+    import tempfile
+
+    import torch
+    from mpc_arpo_project_tpu_torch.tools import profile_step as ps
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    engine, noise = ps.flagship_engine(PROFILE_B, T_final=PROFILE_T_FINAL)
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as log_dir:
+        prof = ps.profile(engine, noise, start_seg=PROFILE_START_SEG,
+                          segs=PROFILE_SEGS, log_dir=log_dir)
+    torch.cuda.synchronize()
+    launches = _read_counters(counters)
+    agg = ps.aggregate(prof.events, prof.n_steps, PROFILE_TOP)
+    dev, n = agg["device"], prof.n_steps
+    lo = PROFILE_START_SEG * ps.SEG
+    if dev is None:
+        raise AssertionError("the profiler recorded no device event")
+    events = ps.kernel_events(prof.events, "eig_chunk_kernel")
+    if events != prof.launches["eig_chunk"]:
+        raise AssertionError(f"the trace holds {events} eig_chunk kernel "
+                             f"events, the wrapper counted "
+                             f"{prof.launches['eig_chunk']} launches")
+    # the union and the sum are taken from the same microsecond stamps;
+    # the margin is their float rounding
+    if not (dev["busy_ms"] <= dev["window_ms"] * (1 + 1e-12)
+            and dev["busy_ms"] <= dev["device_ms"] * (1 + 1e-12)
+            and 0.0 <= dev["idle_share"] <= 1.0):
+        raise AssertionError(f"busy {dev['busy_ms']} ms, window "
+                             f"{dev['window_ms']} ms, events summed "
+                             f"{dev['device_ms']} ms, idle share "
+                             f"{dev['idle_share']}")
+    rep = dict(
+        config=f"profile_step's flagship: fp32 'eig', B={PROFILE_B}, "
+               f"{engine.nsim} steps, window [{lo}, {lo + n})",
+        idle_share=dev["idle_share"],
+        traced_ms_per_step=prof.wall_s * 1e3 / n,
+        # the segment before the window, untraced
+        untraced_ms_per_step_before=prof.seg_ms[PROFILE_START_SEG - 1],
+        window_ms_per_step=dev["window_ms"] / n,
+        busy_ms_per_step=dev["busy_ms"] / n,
+        device_events_per_step=dev["n_events"] / n,
+        eig_chunk=dict(launches_in_window=prof.launches["eig_chunk"],
+                       kernel_events=events),
+        n_events=len(prof.events), trace_s=prof.trace_s,
+        top_device=[[name[:60], ms / n, count]
+                    for name, ms, count in agg["ops"][:5]],
+        top_idle_host_ops=[[name, ms] for name, ms, _ in
+                           dev["idle_by_host_op"][:3]],
+        launches={k: v for k, v in launches.items() if v},
+        wall_s=time.perf_counter() - t0)
+    ps.print_tables(agg, log)
+    ps.print_idle(dict(dev, idle_by_host_op=dev["idle_by_host_op"][:10]), n,
+                  log)
+    log("  [profile] " + json.dumps(rep))
+    return launches, rep
+
+
 def entry_agreement():
     """``entry()``'s step (B=8, Nx=40, 'eig') on the card against the CPU
     from the same carry: in fp64, statuses, controller codes and
@@ -2943,7 +3038,14 @@ def main() -> int:
     log(f"  bench done at {time.perf_counter() - t_start:.1f} s "
         f"(the phase {bench_report['wall_s']:.1f} s)")
 
-    # 15. small end-to-end agreement, card against CPU
+    # 15. the device's time by kernel and its idle share
+    counts, profile_report = profile_phase()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"  profile done at {time.perf_counter() - t_start:.1f} s "
+        f"(the phase {profile_report['wall_s']:.1f} s)")
+
+    # 16. small end-to-end agreement, card against CPU
     small_agreement(3, "eig")
     small_agreement(13, "eig", settings_kw=dict(eig_rescue_mode="near"))
     small_agreement(4, "pallas")
@@ -2954,7 +3056,7 @@ def main() -> int:
     continuous_agreement(10, "chol")
     in_track_agreement(12)
 
-    # 16. import check
+    # 17. import check
     bad = _foreign_modules()
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2969,6 +3071,7 @@ def main() -> int:
     print("oracle: " + json.dumps(oracle_report))
     print("dissection: " + json.dumps(dissection_report))
     print("bench: " + json.dumps(bench_report))
+    print("profile: " + json.dumps(profile_report))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

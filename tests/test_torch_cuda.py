@@ -28,7 +28,8 @@ runs on ``tick_inputs`` against its twin on the card: in fp64 the masks
 in fp32 each scenario's states within 1e-4 of the fp32 twin or no farther
 from the fp64 twin than 4x the fp32 twin plus 1e-4. A B=8 continuous
 closed loop on the card equals the CPU's, and so does the mixed sweep's
-noisy offset-free in-track discrete engine ('eig'). The sweeps: a world-1 NCCL
+noisy offset-free in-track discrete engine ('eig'). ``torch.profiler`` records one kernel event for one ``eig_chunk`` call
+(``tools/profile_step``'s instrument). The sweeps: a world-1 NCCL
 ``run_sweep`` on the card equals the CPU's ``chunk_stats`` on its chunks'
 draws, and a batch on the card gives its two halves' outcomes (fp64 'eig').
 The oracle tools: ``deviation_bench.replay`` of 3 recorded QPs on the card
@@ -38,6 +39,7 @@ at T=10 s. Production fp32 'eig' docks at least 16 of 32 runs at
 sigma=0.01 and 8 of 8 without noise (``tests/test_tpu_success.py``).
 """
 
+import json
 import os
 
 import numpy as np
@@ -52,6 +54,8 @@ from mpc_arpo_project_tpu_torch.rollout import continuous, discrete
 from mpc_arpo_project_tpu_torch.tools import continuous_fullscale
 from mpc_arpo_project_tpu_torch.tools import deviation_bench
 from mpc_arpo_project_tpu_torch.tools import kernel_probe as kp
+from mpc_arpo_project_tpu_torch.tools import profile_step
+from mpc_arpo_project_tpu_torch.utils.timing import profile_trace
 # pytest puts this file's directory on sys.path. Import the helpers from
 # there: a regular package named ``tests`` installed elsewhere shadows
 # the repository's ``tests`` directory, which has no ``__init__.py``.
@@ -142,6 +146,28 @@ def test_cuda_kernel_matches_twin(gpu, chunks, case):
     for o, v in zip(out[:3], a[7:10]):
         assert torch.equal(o[done], v[done])
     assert (out[3][done] == 0).all()
+
+
+def test_cuda_profiler_sees_one_eig_chunk_kernel(gpu, chunks, tmp_path):
+    """``torch.profiler`` records the kernel the port launches through
+    ``ctypes``: one ``eig_chunk`` call under the profiler (the library built
+    before it) is one kernel event of ``eig_chunk_kernel`` in the Chrome
+    trace, and one launch counted by the wrapper."""
+    a, k = chunks["warm"]
+    ac, kc = _to(a, k, gpu)
+    admm_eig._lib()
+    torch.cuda.synchronize()
+    n0 = admm_eig.eig_chunk.launches
+    with profile_trace(str(tmp_path)):
+        admm_eig.eig_chunk(*ac, **kc)
+        torch.cuda.synchronize()
+    assert admm_eig.eig_chunk.launches == n0 + 1
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    assert profile_step.kernel_events(events, "eig_chunk_kernel") == 1
+    agg = profile_step.aggregate(events, 1, 10)
+    assert agg["device"] is not None
+    assert 0.0 <= agg["device"]["idle_share"] <= 1.0
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(gpu, chunks):

@@ -31,7 +31,7 @@ def test_port_imports_no_jax():
         "from mpc_arpo_project_tpu_torch.tools import continuous_fullscale, "
         "deviation_bench, osqp_ref, ref_sim\n"
         "from mpc_arpo_project_tpu_torch.tools import first_divergence, "
-        "probe_stall, scaling_bench\n"
+        "probe_stall, profile_step, scaling_bench\n"
         "from mpc_arpo_project_tpu_torch.examples import animate_results, "
         "common, disturb_rej_comp, mixed_sweep_10k, pod_sweep, "
         "success_curve, success_rates, traj_eval_in_track, "
@@ -64,7 +64,7 @@ def test_drivers_run_without_matplotlib():
         "from mpc_arpo_project_tpu_torch.tools import continuous_fullscale, "
         "deviation_bench, osqp_ref, ref_sim\n"
         "from mpc_arpo_project_tpu_torch.tools import first_divergence, "
-        "probe_stall, scaling_bench\n"
+        "probe_stall, profile_step, scaling_bench\n"
         "from mpc_arpo_project_tpu_torch.examples import animate_results, "
         "common, disturb_rej_comp, mixed_sweep_10k, pod_sweep, "
         "success_curve, success_rates, traj_eval_in_track, "
