@@ -43,6 +43,7 @@ import torch
 
 from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, QPStatic, materialize_A
 from mpc_arpo_project_tpu_torch.ops import admm_eig, admm_pallas
+from mpc_arpo_project_tpu_torch.utils.timing import host_read, span
 
 MIN_SCALING = 1e-4
 MAX_SCALING = 1e4
@@ -503,27 +504,28 @@ def admm_solve(
     from ``state``; ``l``/``u`` are UNscaled (B, m) bounds and ``active`` an
     optional (B,) mask of problems to solve (the rest stay frozen, UNSOLVED).
     Same contract as the JAX package's ``admm_solve``."""
-    if settings.solve_mode not in ("chol", "eig", "pallas"):
-        raise ValueError(f"unknown solve_mode {settings.solve_mode!r}")
-    B = l.shape[0]
-    if qbar is None:
-        qbar = prob.qbar.expand(B, prob.qbar.shape[-1])
-    m_prob = prob.A0bar.shape[0]
-    if l.shape[1] < m_prob:
-        padw = (0, m_prob - l.shape[1])
-        l = torch.nn.functional.pad(l, padw)
-        u = torch.nn.functional.pad(u, padw)
-    lbar = prob.E * l
-    ubar = prob.E * u
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=l.device)
-    if settings.solve_mode == "pallas":
-        return _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar,
-                             active)
-    if settings.solve_mode == "eig":
-        return _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar,
-                          active)
-    return _solve_chol(prob, coeffs, lbar, ubar, state, settings, qbar, active)
+    with span("solve"):
+        if settings.solve_mode not in ("chol", "eig", "pallas"):
+            raise ValueError(f"unknown solve_mode {settings.solve_mode!r}")
+        B = l.shape[0]
+        if qbar is None:
+            qbar = prob.qbar.expand(B, prob.qbar.shape[-1])
+        m_prob = prob.A0bar.shape[0]
+        if l.shape[1] < m_prob:
+            padw = (0, m_prob - l.shape[1])
+            l = torch.nn.functional.pad(l, padw)
+            u = torch.nn.functional.pad(u, padw)
+        lbar = prob.E * l
+        ubar = prob.E * u
+        if active is None:
+            active = torch.ones((B,), dtype=torch.bool, device=l.device)
+        if settings.solve_mode == "pallas":
+            return _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar,
+                                 active)
+        if settings.solve_mode == "eig":
+            return _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar,
+                              active)
+        return _solve_chol(prob, coeffs, lbar, ubar, state, settings, qbar, active)
 
 
 def _chol_factor(prob: ADMMProblem, coeffs, rho_scale, sigma):
@@ -615,74 +617,76 @@ def _solve_chol(prob, coeffs, lbar, ubar, state, settings, qbar, active):
     last_prog = torch.zeros((B,), dtype=torch.int64, device=dev)
     done_chunk = torch.zeros((B,), dtype=torch.int64, device=dev)
     chunk = 0
-    all_done = bool(done.all())
+    all_done = host_read(done.all())
     while not all_done and chunk < n_checks:
-        nc = chunk + 1
-        done_in = done
-        rho = rho_scale[:, None] * prob.rho_vec
-        xi, yi, zi = x, y, z
-        for _ in range(settings.check_every):
-            rhs = sigma * xi - qbar + _matvec_AT(prob, coeffs, rho * zi - yi)
-            xt = _chol_solve(L, rhs)
-            zt = _matvec_A(prob, coeffs, xt)
-            z_tmp = alpha * zt + (1 - alpha) * zi
-            z_n = torch.minimum(torch.maximum(z_tmp + yi / rho, lbar), ubar)
-            yi = yi + rho * (z_tmp - z_n)
-            xi = alpha * xt + (1 - alpha) * xi
-            zi = z_n
-        pinf = prim_infeas(yi - y)
-        dinf = dual_infeas(xi - x)
-        rp_n, rp_rel, rd_n, rd_rel = residuals(xi, yi, zi)
-        # done problems keep the residuals they finished at
-        rp = torch.where(done, rp, rp_n)
-        rd = torch.where(done, rd, rd_n)
-        tp = torch.where(done, tp, settings.eps_abs + settings.eps_rel * rp_rel)
-        td = torch.where(done, td, settings.eps_abs + settings.eps_rel * rd_rel)
-        conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
-                & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
-        new_status = torch.where(
-            conv, SOLVED,
-            torch.where(pinf, PRIMAL_INFEASIBLE,
-                        torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
-        ).to(torch.int32)
-        status = torch.where(done, status, new_status)
-        keep = done[:, None]
-        x = torch.where(keep, x, xi)
-        y = torch.where(keep, y, yi)
-        z = torch.where(keep, z, zi)
-        done = done | conv | pinf | dinf
+        with span("solve.chunk"):
+            nc = chunk + 1
+            done_in = done
+            rho = rho_scale[:, None] * prob.rho_vec
+            xi, yi, zi = x, y, z
+            for _ in range(settings.check_every):
+                rhs = sigma * xi - qbar + _matvec_AT(prob, coeffs, rho * zi - yi)
+                xt = _chol_solve(L, rhs)
+                zt = _matvec_A(prob, coeffs, xt)
+                z_tmp = alpha * zt + (1 - alpha) * zi
+                z_n = torch.minimum(torch.maximum(z_tmp + yi / rho, lbar), ubar)
+                yi = yi + rho * (z_tmp - z_n)
+                xi = alpha * xt + (1 - alpha) * xi
+                zi = z_n
+            pinf = prim_infeas(yi - y)
+            dinf = dual_infeas(xi - x)
+            rp_n, rp_rel, rd_n, rd_rel = residuals(xi, yi, zi)
+            # done problems keep the residuals they finished at
+            rp = torch.where(done, rp, rp_n)
+            rd = torch.where(done, rd, rd_n)
+            tp = torch.where(done, tp, settings.eps_abs + settings.eps_rel * rp_rel)
+            td = torch.where(done, td, settings.eps_abs + settings.eps_rel * rd_rel)
+            conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
+                    & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
+            new_status = torch.where(
+                conv, SOLVED,
+                torch.where(pinf, PRIMAL_INFEASIBLE,
+                            torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
+            ).to(torch.int32)
+            status = torch.where(done, status, new_status)
+            keep = done[:, None]
+            x = torch.where(keep, x, xi)
+            y = torch.where(keep, y, yi)
+            z = torch.where(keep, z, zi)
+            done = done | conv | pinf | dinf
 
-        if settings.stall_exit_chunks:
-            thr = (settings.stall_improve2 if nc >= settings.stall_tighten_chunks
-                   else settings.stall_improve)
-            improved = (rp <= thr * best_rp) | (rd <= thr * best_rd)
-            last_prog = last_prog.masked_fill(done | improved, nc)
-            stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
-            status = status.masked_fill(stalled, MAX_ITER)
-            done = done | stalled
-        best_rp = torch.minimum(best_rp, rp)
-        best_rd = torch.minimum(best_rd, rd)
+            if settings.stall_exit_chunks:
+                thr = (settings.stall_improve2 if nc >= settings.stall_tighten_chunks
+                       else settings.stall_improve)
+                improved = (rp <= thr * best_rp) | (rd <= thr * best_rd)
+                last_prog = last_prog.masked_fill(done | improved, nc)
+                stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
+                status = status.masked_fill(stalled, MAX_ITER)
+                done = done | stalled
+            best_rp = torch.minimum(best_rp, rp)
+            best_rd = torch.minimum(best_rd, rd)
 
-        if settings.adaptive_rho and nc % adapt_stride == 0:
-            num = rp / rp_rel.clamp(min=1e-10)
-            den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
-            ratio = torch.sqrt(num / den)
-            tol = settings.adaptive_rho_tol
-            trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
-            new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
-            new_scale = new_scale.clamp(rho_lo, rho_hi)
-            any_trig, all_done = torch.stack([trig.any(), done.all()]).tolist()
-            if any_trig:
-                L = _chol_factor(prob, coeffs, new_scale, sigma)
-            rho_scale = new_scale
-        else:
-            if settings.adaptive_rho:
-                # off-stride chunks keep the scale, clipped as the JAX
-                # branch clips it on every chunk
-                rho_scale = rho_scale.clamp(rho_lo, rho_hi)
-            all_done = bool(done.all())
-        done_chunk = done_chunk.masked_fill(done & ~done_in, nc)
-        chunk = nc
+            if settings.adaptive_rho and nc % adapt_stride == 0:
+                num = rp / rp_rel.clamp(min=1e-10)
+                den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
+                ratio = torch.sqrt(num / den)
+                tol = settings.adaptive_rho_tol
+                trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
+                new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
+                new_scale = new_scale.clamp(rho_lo, rho_hi)
+                any_trig, all_done = host_read(
+                    torch.stack([trig.any(), done.all()]))
+                if any_trig:
+                    L = _chol_factor(prob, coeffs, new_scale, sigma)
+                rho_scale = new_scale
+            else:
+                if settings.adaptive_rho:
+                    # off-stride chunks keep the scale, clipped as the JAX
+                    # branch clips it on every chunk
+                    rho_scale = rho_scale.clamp(rho_lo, rho_hi)
+                all_done = host_read(done.all())
+            done_chunk = done_chunk.masked_fill(done & ~done_in, nc)
+            chunk = nc
 
     status = torch.where(done, status, MAX_ITER).to(torch.int32)
     done_chunk = torch.where(active & (done_chunk == 0), chunk, done_chunk)
@@ -778,116 +782,118 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
     gscat_s = prob.gscat[2 * gw:].contiguous()
 
     # ---- combo-pure, alive-first slot assignment padded to tile multiples
-    n_groups = 4
-    n_slots = B + n_groups * bt
-    counts = (combo[:, None] == torch.arange(n_groups, **i64)[None, :]).sum(0)
-    padded = ((counts + bt - 1) // bt) * bt
-    bounds = torch.cumsum(padded, 0)
-    goff = bounds - padded
-    cstart = torch.cumsum(counts, 0) - counts
-    arB = torch.arange(B, **i64)
-    key = combo * (2 * B) + (~active).long() * B + arB
-    perm = torch.argsort(key)  # unique keys
-    combo_sorted = combo[perm]
-    slot = torch.empty(B, **i64)
-    slot[perm] = goff[combo_sorted] + arB - cstart[combo_sorted]
-    src = torch.full((n_slots,), B, **i64)
-    src[slot] = arB
-    dummy = src >= B
-    srcc = src.clamp(0, B - 1)
-    n_tiles = n_slots // bt
-    tpos = torch.arange(n_tiles, **i64) * bt
-    tile_combo = (tpos[:, None] >= bounds[None, :n_groups - 1]).sum(1).to(
-        torch.int32)
+    with span("solve.setup"):
+        n_groups = 4
+        n_slots = B + n_groups * bt
+        counts = (combo[:, None] == torch.arange(n_groups, **i64)[None, :]).sum(0)
+        padded = ((counts + bt - 1) // bt) * bt
+        bounds = torch.cumsum(padded, 0)
+        goff = bounds - padded
+        cstart = torch.cumsum(counts, 0) - counts
+        arB = torch.arange(B, **i64)
+        key = combo * (2 * B) + (~active).long() * B + arB
+        perm = torch.argsort(key)  # unique keys
+        combo_sorted = combo[perm]
+        slot = torch.empty(B, **i64)
+        slot[perm] = goff[combo_sorted] + arB - cstart[combo_sorted]
+        src = torch.full((n_slots,), B, **i64)
+        src[slot] = arB
+        dummy = src >= B
+        srcc = src.clamp(0, B - 1)
+        n_tiles = n_slots // bt
+        tpos = torch.arange(n_tiles, **i64) * bt
+        tile_combo = (tpos[:, None] >= bounds[None, :n_groups - 1]).sum(1).to(
+            torch.int32)
 
-    def gat(a):
-        return a[srcc]
+        def gat(a):
+            return a[srcc]
 
-    c1s, c2s, ss = gat(c1), gat(c2), gat(s)
-    rsc = gat(state.rho_scale)
-    lb, ub = gat(lbar), gat(ubar)
-    qb = gat(qbar)
-    act = gat(active) & ~dummy
-    ref = gat(state.ref_coef)
-    tinv = gat(state.minv)
-    lam_s = prob.eig_lam[gat(combo)]
+        c1s, c2s, ss = gat(c1), gat(c2), gat(s)
+        rsc = gat(state.rho_scale)
+        lb, ub = gat(lbar), gat(ubar)
+        qb = gat(qbar)
+        act = gat(active) & ~dummy
+        ref = gat(state.ref_coef)
+        tinv = gat(state.minv)
+        lam_s = prob.eig_lam[gat(combo)]
 
-    # non-finite warm iterates or a poisoned inner inverse reset to cold
-    xg, yg, zg = gat(state.xbar), gat(state.ybar), gat(state.zbar)
-    it_finite = (torch.isfinite(xg).all(1) & torch.isfinite(yg).all(1)
-                 & torch.isfinite(zg).all(1))[:, None]
-    x0 = torch.where(it_finite, xg, 0.0)
-    y0 = torch.where(it_finite, yg, 0.0)
-    z0 = torch.where(it_finite, zg, 0.0)
-    tv_finite = torch.isfinite(tinv).all(2).all(1)
-    tinv = torch.where(tv_finite[:, None, None], tinv, 0.0)
+        # non-finite warm iterates or a poisoned inner inverse reset to cold
+        xg, yg, zg = gat(state.xbar), gat(state.ybar), gat(state.zbar)
+        it_finite = (torch.isfinite(xg).all(1) & torch.isfinite(yg).all(1)
+                     & torch.isfinite(zg).all(1))[:, None]
+        x0 = torch.where(it_finite, xg, 0.0)
+        y0 = torch.where(it_finite, yg, 0.0)
+        z0 = torch.where(it_finite, zg, 0.0)
+        tv_finite = torch.isfinite(tinv).all(2).all(1)
+        tinv = torch.where(tv_finite[:, None, None], tinv, 0.0)
 
-    # ---- debris-row equilibration: alpha = smax/|s| where |s| > smax; a
-    # non-finite s keeps alpha = 1 (the nan-reset machinery owns that row)
-    smax = float(settings.eig_deb_equil_smax)
+        # ---- debris-row equilibration: alpha = smax/|s| where |s| > smax; a
+        # non-finite s keeps alpha = 1 (the nan-reset machinery owns that row)
+        smax = float(settings.eig_deb_equil_smax)
 
-    def al_of(ssv):
-        if smax <= 0:
-            return torch.ones_like(ssv)
-        sa = ssv.abs()
-        return torch.where(torch.isfinite(ssv) & (sa > smax), smax / sa,
-                           torch.ones_like(ssv))
+        def al_of(ssv):
+            if smax <= 0:
+                return torch.ones_like(ssv)
+            sa = ssv.abs()
+            return torch.where(torch.isfinite(ssv) & (sa > smax), smax / sa,
+                               torch.ones_like(ssv))
 
-    dmask_m = scat_s.amax(0)  # (m,) 1.0 on debris rows
-    dmask_row = dmask_m.reshape(1, -1)
+        dmask_m = scat_s.amax(0)  # (m,) 1.0 on debris rows
+        dmask_row = dmask_m.reshape(1, -1)
 
-    def rowsc_of(ssv):
-        return 1.0 + (al_of(ssv)[:, None] - 1.0) * dmask_m[None, :]
+        def rowsc_of(ssv):
+            return 1.0 + (al_of(ssv)[:, None] - 1.0) * dmask_m[None, :]
 
-    rowsc0 = rowsc_of(ss)
-    lb = lb * rowsc0
-    ub = ub * rowsc0
-    z0 = z0 * rowsc0
-    y0 = y0 / rowsc0
+        rowsc0 = rowsc_of(ss)
+        lb = lb * rowsc0
+        ub = ub * rowsc0
+        z0 = z0 * rowsc0
+        y0 = y0 / rowsc0
 
-    sz0 = ss != 0.0
-    need = act & sz0 & (
-        (ref[:, 0] != c1s) | (ref[:, 1] != c2s) | (ref[:, 2] != ss)
-        | (ref[:, 3] != rsc) | ~tv_finite)
+        sz0 = ss != 0.0
+        need = act & sz0 & (
+            (ref[:, 0] != c1s) | (ref[:, 1] != c2s) | (ref[:, 2] != ss)
+            | (ref[:, 3] != rsc) | ~tv_finite)
 
-    # slot-space per-problem data that compaction permutes with the carry
-    sdata = dict(qb=qb, lb=lb, ub=ub, c1s=c1s, c2s=c2s, ss=ss, lam=lam_s,
-                 src=src)
+        # slot-space per-problem data that compaction permutes with the carry
+        sdata = dict(qb=qb, lb=lb, ub=ub, c1s=c1s, c2s=c2s, ss=ss, lam=lam_s,
+                     src=src)
 
-    def dg_of(sd, r):
-        return 1.0 / (1.0 + r[:, None] * sd["lam"])
+        def dg_of(sd, r):
+            return 1.0 / (1.0 + r[:, None] * sd["lam"])
 
-    def scal_of(sd, r):
-        return torch.cat([r[:, None], sd["ss"][:, None],
-                          al_of(sd["ss"])[:, None],
-                          torch.zeros((n_slots, 5), dtype=dt, device=dev)], 1)
+        def scal_of(sd, r):
+            return torch.cat([r[:, None], sd["ss"][:, None],
+                              al_of(sd["ss"])[:, None],
+                              torch.zeros((n_slots, 5), dtype=dt, device=dev)], 1)
 
-    cap_div = max(0, int(settings.eig_refresh_cap_div))
-    cap = n_slots // cap_div if cap_div > 1 else n_slots
+        cap_div = max(0, int(settings.eig_refresh_cap_div))
+        cap = n_slots // cap_div if cap_div > 1 else n_slots
 
-    def refresh_rows(combo_r, scal_r, dg_r, tv_r, mask_r):
-        return admm_eig.tinv_safe_refresh(
-            combo_r, scal_r, dg_r, tv_r, mask_r, prob.eig_YT,
-            prob.eig_w33col, warm_iters=settings.eig_warm_iters,
-            cold_iters=settings.eig_cold_iters, wuucol=prob.eig_wuucol,
-            cold_cap=(max(2 * bt, cap) if cap_div > 1 else 0))
+        def refresh_rows(combo_r, scal_r, dg_r, tv_r, mask_r):
+            return admm_eig.tinv_safe_refresh(
+                combo_r, scal_r, dg_r, tv_r, mask_r, prob.eig_YT,
+                prob.eig_w33col, warm_iters=settings.eig_warm_iters,
+                cold_iters=settings.eig_cold_iters, wuucol=prob.eig_wuucol,
+                cold_cap=(max(2 * bt, cap) if cap_div > 1 else 0))
 
-    def refresh(sd, tv, r, mask):
-        combo_r = (sd["c1s"] > 0).long() * 2 + (sd["c2s"] > 0).long()
-        scal_r, dg_r = scal_of(sd, r), dg_of(sd, r)
-        if cap >= n_slots or int(mask.sum()) > cap:
-            return refresh_rows(combo_r, scal_r, dg_r, tv, mask)
-        # needy rows first (stable: slot order); bit-identical to the
-        # full-width refresh because per-row math is independent
-        idx = torch.argsort((~mask).to(torch.int32), stable=True)[:cap]
-        out = tv.clone()
-        out[idx] = refresh_rows(combo_r[idx], scal_r[idx], dg_r[idx],
-                                tv[idx], mask[idx])
-        return out
+        def refresh(sd, tv, r, mask):
+            with span("solve.refresh"):
+                combo_r = (sd["c1s"] > 0).long() * 2 + (sd["c2s"] > 0).long()
+                scal_r, dg_r = scal_of(sd, r), dg_of(sd, r)
+                if cap >= n_slots or host_read(mask.sum()) > cap:
+                    return refresh_rows(combo_r, scal_r, dg_r, tv, mask)
+                # needy rows first (stable: slot order); bit-identical to the
+                # full-width refresh because per-row math is independent
+                idx = torch.argsort((~mask).to(torch.int32), stable=True)[:cap]
+                out = tv.clone()
+                out[idx] = refresh_rows(combo_r[idx], scal_r[idx], dg_r[idx],
+                                        tv[idx], mask[idx])
+                return out
 
-    if bool(need.any()):
-        tinv = refresh(sdata, tinv, rsc, need)
-    ref = torch.where(need[:, None], torch.stack([c1s, c2s, ss, rsc], 1), ref)
+        if host_read(need.any()):
+            tinv = refresh(sdata, tinv, rsc, need)
+        ref = torch.where(need[:, None], torch.stack([c1s, c2s, ss, rsc], 1), ref)
 
     sigma = float(settings.sigma)
     n_checks = settings.max_iter // settings.check_every
@@ -1012,8 +1018,8 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             # rho enters the solve exactly through dg; only debris-active
             # problems carry a (combo, r, s)-dependent inner inverse
             mask = trig & (sd["ss"] != 0.0)
-            any_mask, n_live = torch.stack(
-                [mask.any().long(), (~done).sum()]).tolist()
+            any_mask, n_live = host_read(
+                torch.stack([mask.any().long(), (~done).sum()]))
             if any_mask:
                 tinv = refresh(sd, tinv, new_scale, mask)
             ref = torch.where(
@@ -1022,7 +1028,7 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
                 ref)
             rho_scale = new_scale
         else:
-            n_live = int((~done).sum())
+            n_live = host_read((~done).sum())
 
         done_chunk = cy.done_chunk.masked_fill(done & ~cy.done, nc)
         new = _Carry(x, y, z, rp, rd, done, status, tinv, rho_scale, ref,
@@ -1055,11 +1061,12 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         post_rescue=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
     )
     chunk = 0
-    n_live = int((~cy.done).sum())
+    n_live = host_read((~cy.done).sum())
 
     def run(sd, cy, chunk, n_live, end, mult):
         while n_live and chunk + mult <= end:
-            cy, n_live = body(sd, cy, chunk, mult, n_live)
+            with span("solve.chunk"):
+                cy, n_live = body(sd, cy, chunk, mult, n_live)
             chunk += mult
         return cy, chunk, n_live
 
@@ -1069,7 +1076,8 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         if end <= prev_end:
             continue
         cy, chunk, n_live = run(sdata, cy, chunk, n_live, end, 1)
-        sdata, cy = compact(sdata, cy)
+        with span("solve.compact"):
+            sdata, cy = compact(sdata, cy)
         prev_end = end
     mult = max(1, int(settings.eig_tail_mult))
     if mult > 1 and prev_end + mult <= n_checks:
@@ -1080,49 +1088,50 @@ def _solve_eig(prob, coeffs, lbar, ubar, state, settings, qbar, active):
 
     # ---- scatter back to problem order: dummy slots (src == B) land in a
     # spare last entry that is dropped
-    final_slot = torch.zeros(B + 1, **i64)
-    final_slot[sdata["src"]] = slot_pos
-    final_slot = final_slot[:B]
+    with span("solve.finish"):
+        final_slot = torch.zeros(B + 1, **i64)
+        final_slot[sdata["src"]] = slot_pos
+        final_slot = final_slot[:B]
 
-    def sc(a):
-        return a[final_slot]
+        def sc(a):
+            return a[final_slot]
 
-    x, y, z = sc(cy.x), sc(cy.y), sc(cy.z)
-    # leave the alpha-scaled problem: slacks /= alpha, duals *= alpha
-    rowsc_b = rowsc_of(s)
-    z = z / rowsc_b
-    y = y * rowsc_b
-    rp, rd = sc(cy.rp), sc(cy.rd)
-    rp_tol, rd_tol = sc(cy.tp), sc(cy.td)
-    done = sc(cy.done)
-    status = torch.where(done, sc(cy.status), MAX_ITER).to(torch.int32)
-    done_chunk = sc(cy.done_chunk)
-    done_chunk = torch.where(active & (done_chunk == 0), chunk, done_chunk)
-    tinv = sc(cy.tinv)
-    rho_scale = sc(cy.rho_scale)
-    ref = sc(cy.ref)
+        x, y, z = sc(cy.x), sc(cy.y), sc(cy.z)
+        # leave the alpha-scaled problem: slacks /= alpha, duals *= alpha
+        rowsc_b = rowsc_of(s)
+        z = z / rowsc_b
+        y = y * rowsc_b
+        rp, rd = sc(cy.rp), sc(cy.rd)
+        rp_tol, rd_tol = sc(cy.tp), sc(cy.td)
+        done = sc(cy.done)
+        status = torch.where(done, sc(cy.status), MAX_ITER).to(torch.int32)
+        done_chunk = sc(cy.done_chunk)
+        done_chunk = torch.where(active & (done_chunk == 0), chunk, done_chunk)
+        tinv = sc(cy.tinv)
+        rho_scale = sc(cy.rho_scale)
+        ref = sc(cy.ref)
 
-    down = float(settings.eig_exit_rho_down)
-    if 0.0 < down < 1.0:
-        pp = ((status == MAX_ITER) & (rp > rp_tol.clamp(min=1e-30))
-              & (rd <= rd_tol.clamp(min=1e-30)))
-        rho_scale = torch.where(pp, (rho_scale * down).clamp(rho_lo, rho_hi),
-                                rho_scale)
+        down = float(settings.eig_exit_rho_down)
+        if 0.0 < down < 1.0:
+            pp = ((status == MAX_ITER) & (rp > rp_tol.clamp(min=1e-30))
+                  & (rd <= rd_tol.clamp(min=1e-30)))
+            rho_scale = torch.where(pp, (rho_scale * down).clamp(rho_lo, rho_hi),
+                                    rho_scale)
 
-    return ADMMResult(
-        x=prob.D * x,
-        status=status,
-        iters=chunk * settings.check_every,
-        pri_res=rp,
-        dua_res=rd,
-        state=ADMMState(xbar=x, ybar=y, zbar=z, rho_scale=rho_scale,
-                        minv=tinv,
-                        minv_ok=torch.ones((), dtype=torch.bool, device=dev),
-                        ref_coef=ref),
-        done_iters=(done_chunk * settings.check_every).to(torch.int32),
-        pri_tol=rp_tol,
-        dua_tol=rd_tol,
-    )
+        return ADMMResult(
+            x=prob.D * x,
+            status=status,
+            iters=chunk * settings.check_every,
+            pri_res=rp,
+            dua_res=rd,
+            state=ADMMState(xbar=x, ybar=y, zbar=z, rho_scale=rho_scale,
+                            minv=tinv,
+                            minv_ok=torch.ones((), dtype=torch.bool, device=dev),
+                            ref_coef=ref),
+            done_iters=(done_chunk * settings.check_every).to(torch.int32),
+            pri_tol=rp_tol,
+            dua_tol=rd_tol,
+        )
 
 
 class _PCarry(NamedTuple):
@@ -1197,7 +1206,7 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             return full_refresh
 
         def compact_refresh(minv, rho_scale, needmask):
-            n_need = int(needmask.sum())
+            n_need = host_read(needmask.sum())
             if n_need > K:
                 return full_refresh(minv, rho_scale, needmask, n_need)
             idx = torch.argsort((~needmask).to(torch.int32), stable=True)[:K]
@@ -1229,7 +1238,7 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             | ~((rc[:, 2] - s).abs() <= drift * (1.0 + rc[:, 2].abs()))
             | (rc[:, 3] != state.rho_scale) | ~state.minv_ok) & active
     minv0 = state.minv
-    if bool(need.any()):
+    if host_read(need.any()):
         minv0 = make_ns_refresh(coef, bt)(state.minv, state.rho_scale, need)
     ref0 = torch.where(need[:, None],
                        torch.stack([c1, c2, s, state.rho_scale], 1), rc)
@@ -1248,79 +1257,80 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
         together with the adaptive-rho trigger flag."""
         ns_refresh = make_ns_refresh(coef_l, bt_l)
         ns_weights = make_ns_weights(coef_l)
-        n_live = int((~cy.done).sum())
+        n_live = host_read((~cy.done).sum())
         while (n_live > 0 and chunk < n_checks
                and (stop_at is None or n_live > stop_at)):
-            nc = chunk + 1
-            done = cy.done
-            rho_scale = cy.rho_scale
-            rho = (rho_scale[:, None] * prob.rho_vec).contiguous()
-            x_n, y_n, z_n, stats = admm_pallas.admm_chunk(
-                cy.minv, coef_l, qbar_l, lbar_l, ubar_l, rho, cy.x, cy.y,
-                cy.z, ns_weights(rho_scale), prob.A0bar, prob.Pbar,
-                prob.gsel, prob.scat, prob.rsel, prob.gscat, stack7,
-                prob.Einv, prob.Dinv, done=done, n_live=n_live,
-                n_iter=settings.check_every, sigma=sigma,
-                alpha=float(settings.alpha),
-                eps_pinf=float(settings.eps_pinf),
-                eps_dinf=float(settings.eps_dinf),
-                pinf_margin=float(settings.pinf_support_margin), bt=bt_l,
-                ir_steps=settings.ir_steps, two_limb=settings.minv_two_limb)
-            rp = torch.where(done, cy.rp, stats[:, 0])
-            rd = torch.where(done, cy.rd, cinv * stats[:, 2])
-            rp_rel, rd_rel = stats[:, 1], cinv * stats[:, 3]
-            pinf = stats[:, 4] > 0
-            dinf = stats[:, 5] > 0
-            conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
-                    & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
-            new_status = torch.where(
-                conv, SOLVED,
-                torch.where(pinf, PRIMAL_INFEASIBLE,
-                            torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
-            ).to(torch.int32)
-            status = torch.where(done, cy.status, new_status)
-            keep = done[:, None]
-            x = torch.where(keep, cy.x, x_n)
-            y = torch.where(keep, cy.y, y_n)
-            z = torch.where(keep, cy.z, z_n)
-            done = done | conv | pinf | dinf
+            with span("solve.chunk"):
+                nc = chunk + 1
+                done = cy.done
+                rho_scale = cy.rho_scale
+                rho = (rho_scale[:, None] * prob.rho_vec).contiguous()
+                x_n, y_n, z_n, stats = admm_pallas.admm_chunk(
+                    cy.minv, coef_l, qbar_l, lbar_l, ubar_l, rho, cy.x, cy.y,
+                    cy.z, ns_weights(rho_scale), prob.A0bar, prob.Pbar,
+                    prob.gsel, prob.scat, prob.rsel, prob.gscat, stack7,
+                    prob.Einv, prob.Dinv, done=done, n_live=n_live,
+                    n_iter=settings.check_every, sigma=sigma,
+                    alpha=float(settings.alpha),
+                    eps_pinf=float(settings.eps_pinf),
+                    eps_dinf=float(settings.eps_dinf),
+                    pinf_margin=float(settings.pinf_support_margin), bt=bt_l,
+                    ir_steps=settings.ir_steps, two_limb=settings.minv_two_limb)
+                rp = torch.where(done, cy.rp, stats[:, 0])
+                rd = torch.where(done, cy.rd, cinv * stats[:, 2])
+                rp_rel, rd_rel = stats[:, 1], cinv * stats[:, 3]
+                pinf = stats[:, 4] > 0
+                dinf = stats[:, 5] > 0
+                conv = ((rp <= settings.eps_abs + settings.eps_rel * rp_rel)
+                        & (rd <= settings.eps_abs + settings.eps_rel * rd_rel))
+                new_status = torch.where(
+                    conv, SOLVED,
+                    torch.where(pinf, PRIMAL_INFEASIBLE,
+                                torch.where(dinf, DUAL_INFEASIBLE, UNSOLVED)),
+                ).to(torch.int32)
+                status = torch.where(done, cy.status, new_status)
+                keep = done[:, None]
+                x = torch.where(keep, cy.x, x_n)
+                y = torch.where(keep, cy.y, y_n)
+                z = torch.where(keep, cy.z, z_n)
+                done = done | conv | pinf | dinf
 
-            last_prog = cy.last_prog
-            if settings.stall_exit_chunks:
-                thr = (settings.stall_improve2
-                       if nc >= settings.stall_tighten_chunks
-                       else settings.stall_improve)
-                improved = (rp <= thr * cy.best_rp) | (rd <= thr * cy.best_rd)
-                last_prog = last_prog.masked_fill(done | improved, nc)
-                stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
-                status = status.masked_fill(stalled, MAX_ITER)
-                done = done | stalled
-            best_rp = torch.minimum(cy.best_rp, rp)
-            best_rd = torch.minimum(cy.best_rd, rd)
+                last_prog = cy.last_prog
+                if settings.stall_exit_chunks:
+                    thr = (settings.stall_improve2
+                           if nc >= settings.stall_tighten_chunks
+                           else settings.stall_improve)
+                    improved = (rp <= thr * cy.best_rp) | (rd <= thr * cy.best_rd)
+                    last_prog = last_prog.masked_fill(done | improved, nc)
+                    stalled = ~done & (nc - last_prog >= settings.stall_exit_chunks)
+                    status = status.masked_fill(stalled, MAX_ITER)
+                    done = done | stalled
+                best_rp = torch.minimum(cy.best_rp, rp)
+                best_rd = torch.minimum(cy.best_rd, rd)
 
-            minv = cy.minv
-            if settings.adaptive_rho:
-                num = rp / rp_rel.clamp(min=1e-10)
-                den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
-                ratio = torch.sqrt(num / den)
-                tol = settings.adaptive_rho_tol
-                trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
-                if nc % adapt_stride:
-                    trig = torch.zeros_like(trig)
-                new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
-                new_scale = new_scale.clamp(rho_lo, rho_hi)
-                any_trig, n_live = torch.stack(
-                    [trig.any().long(), (~done).sum()]).tolist()
-                if any_trig:
-                    minv = ns_refresh(minv, new_scale, trig)
-                rho_scale = new_scale
-            else:
-                n_live = int((~done).sum())
+                minv = cy.minv
+                if settings.adaptive_rho:
+                    num = rp / rp_rel.clamp(min=1e-10)
+                    den = (rd / rd_rel.clamp(min=1e-10)).clamp(min=1e-10)
+                    ratio = torch.sqrt(num / den)
+                    tol = settings.adaptive_rho_tol
+                    trig = ((ratio > tol) | (ratio < 1.0 / tol)) & ~done
+                    if nc % adapt_stride:
+                        trig = torch.zeros_like(trig)
+                    new_scale = torch.where(trig, rho_scale * ratio, rho_scale)
+                    new_scale = new_scale.clamp(rho_lo, rho_hi)
+                    any_trig, n_live = host_read(torch.stack(
+                        [trig.any().long(), (~done).sum()]))
+                    if any_trig:
+                        minv = ns_refresh(minv, new_scale, trig)
+                    rho_scale = new_scale
+                else:
+                    n_live = host_read((~done).sum())
 
-            done_chunk = cy.done_chunk.masked_fill(done & ~cy.done, nc)
-            cy = _PCarry(x, y, z, rp, rd, done, status, minv, rho_scale,
-                         best_rp, best_rd, last_prog, done_chunk)
-            chunk = nc
+                done_chunk = cy.done_chunk.masked_fill(done & ~cy.done, nc)
+                cy = _PCarry(x, y, z, rp, rd, done, status, minv, rho_scale,
+                             best_rp, best_rd, last_prog, done_chunk)
+                chunk = nc
         return cy, chunk, n_live
 
     # overtime cascade widths: halve from B/2 down to ~B/overtime_div
@@ -1363,7 +1373,7 @@ def _solve_pallas(prob, coeffs, lbar, ubar, state, settings, qbar, active):
             full[idx] = part
             merged.append(full)
         cy = _PCarry(*merged)
-        n_live = int((~cy.done).sum())
+        n_live = host_read((~cy.done).sum())
 
     done_chunk = torch.where(active & (cy.done_chunk == 0), chunk,
                              cy.done_chunk)

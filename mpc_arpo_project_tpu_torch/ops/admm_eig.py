@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from mpc_arpo_project_tpu_torch.ops import _build
+from mpc_arpo_project_tpu_torch.utils.timing import host_read, span
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +247,8 @@ def eig_chunk(
         return eig_chunk_ref(*args, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"eig_chunk: no kernel for device {x.device}")
-    return _eig_chunk_cuda(*args, n_live=n_live, group=group, **kw)
+    with span("kernel.eig_chunk"):
+        return _eig_chunk_cuda(*args, n_live=n_live, group=group, **kw)
 
 
 eig_chunk.launches = 0
@@ -390,7 +392,7 @@ def tinv_safe_refresh(combo_row, scal, dg, X_prev, need, YTst, w33col, *,
                          n_iter=warm_iters, cold=False, wuucol=wuucol)
     bad = need & ((r > 1e-2) | ~torch.isfinite(r))
     Xw = torch.where(bad[:, None, None], 0.0, Xw)
-    n_bad = int(bad.sum())
+    n_bad = host_read(bad.sum())
     if n_bad == 0:
         return Xw
 

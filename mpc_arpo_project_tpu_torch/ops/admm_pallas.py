@@ -47,6 +47,7 @@ import ctypes
 import torch
 
 from mpc_arpo_project_tpu_torch.ops import _build, admm_eig
+from mpc_arpo_project_tpu_torch.utils.timing import host_read
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +328,7 @@ def masked_safe_refresh(ns_stack, w, X_prev, need, *, warm_iters: int,
                      cold=False, bt=bt, n_need=n_need)
     bad = need & ((r > 1e-2) | ~torch.isfinite(r))
     Xw = torch.where(bad[:, None, None], 0.0, Xw)
-    n_bad = int(bad.sum())
+    n_bad = host_read(bad.sum())
     if not n_bad:
         return Xw
     return ns_fused(ns_stack, w, Xw, bad, n_iter=cold_iters, cold=True,

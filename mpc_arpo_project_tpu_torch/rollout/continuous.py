@@ -27,6 +27,7 @@ from mpc_arpo_project_tpu_torch.config import (
 from mpc_arpo_project_tpu_torch.ops import admm, kalman, ukf
 from mpc_arpo_project_tpu_torch.ops import rk4_tick as rk4
 from mpc_arpo_project_tpu_torch.rollout import discrete as dd
+from mpc_arpo_project_tpu_torch.utils.timing import span
 
 
 @dataclass(frozen=True)
@@ -162,113 +163,119 @@ class _CCarry(NamedTuple):
 
 def _tick(engine: ContinuousEngine, carry: _CCarry, j: int,
           noise_draws: torch.Tensor, substep_telemetry: bool):
-    """One control tick: solve and switch as the discrete step does, then
-    the n_sub RK4 substeps with sample-and-hold (``rk4_tick``)."""
-    base = engine.base
-    dims = base.dims
-    B = carry.x_true.shape[0]
+    """One control tick, in a ``loop.tick`` span: solve and switch as the
+    discrete step does, then the n_sub RK4 substeps with sample-and-hold
+    (``rk4_tick``)."""
+    with span("loop.tick"):
+        base = engine.base
+        dims = base.dims
+        B = carry.x_true.shape[0]
 
-    # --- QP solve + controller selection; dead scenarios are skipped in
-    # the solver
-    res = admm.admm_solve(base.prob, (carry.c1, carry.c2, carry.s), carry.l,
-                          carry.u, carry.admm_state, base.settings,
-                          active=carry.alive)
-    solved = res.status == admm.SOLVED
-    i0u = (dims.Nx + 1) * dims.nx
-    u_mpc = res.x[:, i0u: i0u + 2]
-    e = carry.xest_stored
-    cx, cy = base.debris_center[0], base.debris_center[1]
-    h = base.debris_half
-    in_box = ((e[:, 0] - (cx + h) < 0) & (e[:, 0] - (cx - h) > 0)
-              & (e[:, 1] < cy + h) & (e[:, 1] > cy - h))
-    xintf_db = carry.xintf + e[:, 1] - (cy + h)
-    u_db = -(e[:, :4] @ base.K_total.T) - xintf_db[:, None] * base.K_i[:, 0][None, :]
-    xintf_fs = carry.xintf + (e[:, :4] @ base.Crefx[0]) - base.xr[0]
-    u_fs = -(e[:, :4] @ base.Kpf.T) - xintf_fs[:, None] * base.Kif[:, 0][None, :]
-    u_fail = torch.where(in_box[:, None], u_db, u_fs)
-    xintf_new = torch.where(solved, 0.0, torch.where(in_box, xintf_db, xintf_fs))
-    ctrl = torch.where(solved[:, None], u_mpc, u_fail)
-    code = torch.where(solved, 1, torch.where(in_box, 3, 2)).to(torch.int32)
+        # --- QP solve + controller selection; dead scenarios are skipped in
+        # the solver
+        res = admm.admm_solve(base.prob, (carry.c1, carry.c2, carry.s), carry.l,
+                              carry.u, carry.admm_state, base.settings,
+                              active=carry.alive)
+        with span("step.control"):
+            solved = res.status == admm.SOLVED
+            i0u = (dims.Nx + 1) * dims.nx
+            u_mpc = res.x[:, i0u: i0u + 2]
+            e = carry.xest_stored
+            cx, cy = base.debris_center[0], base.debris_center[1]
+            h = base.debris_half
+            in_box = ((e[:, 0] - (cx + h) < 0) & (e[:, 0] - (cx - h) > 0)
+                      & (e[:, 1] < cy + h) & (e[:, 1] > cy - h))
+            xintf_db = carry.xintf + e[:, 1] - (cy + h)
+            u_db = -(e[:, :4] @ base.K_total.T) - xintf_db[:, None] * base.K_i[:, 0][None, :]
+            xintf_fs = carry.xintf + (e[:, :4] @ base.Crefx[0]) - base.xr[0]
+            u_fs = -(e[:, :4] @ base.Kpf.T) - xintf_fs[:, None] * base.Kif[:, 0][None, :]
+            u_fail = torch.where(in_box[:, None], u_db, u_fs)
+            xintf_new = torch.where(solved, 0.0, torch.where(in_box, xintf_db, xintf_fs))
+            ctrl = torch.where(solved[:, None], u_mpc, u_fail)
+            code = torch.where(solved, 1, torch.where(in_box, 3, 2)).to(torch.int32)
 
-    umax0 = base.umax[0]
-    n1 = torch.linalg.vector_norm(ctrl, dim=1)
-    over = n1 > umax0
-    c0 = torch.where(over, ctrl[:, 0] * umax0 / n1, ctrl[:, 0])
-    n2 = torch.sqrt(c0 ** 2 + ctrl[:, 1] ** 2)
-    c1v = torch.where(over, ctrl[:, 1] * umax0 / n2, ctrl[:, 1])
-    ctrl = torch.stack([c0, c1v], 1)
+            umax0 = base.umax[0]
+            n1 = torch.linalg.vector_norm(ctrl, dim=1)
+            over = n1 > umax0
+            c0 = torch.where(over, ctrl[:, 0] * umax0 / n1, ctrl[:, 0])
+            n2 = torch.sqrt(c0 ** 2 + ctrl[:, 1] ** 2)
+            c1v = torch.where(over, ctrl[:, 1] * umax0 / n2, ctrl[:, 1])
+            ctrl = torch.stack([c0, c1v], 1)
 
-    # --- the n_sub substeps with sample-and-hold and the 1-substep delay;
-    # x_after_first is the state one substep after the tick, which the
-    # measurement reads
-    x_end, alive, i_term_sub, succ, x_after_first, x_sub = rk4.rk4_tick(
-        carry.x_true, carry.alive, carry.i_term_sub, carry.succ,
-        carry.prev_u, ctrl, noise_draws, j, engine.plant,
-        telemetry=substep_telemetry)
+        # --- the n_sub substeps with sample-and-hold and the 1-substep delay;
+        # x_after_first is the state one substep after the tick, which the
+        # measurement reads
+        with span("step.plant"):
+            x_end, alive, i_term_sub, succ, x_after_first, x_sub = rk4.rk4_tick(
+                carry.x_true, carry.alive, carry.i_term_sub, carry.succ,
+                carry.prev_u, ctrl, noise_draws, j, engine.plant,
+                telemetry=substep_telemetry)
 
-    # --- measurement + estimator one substep after the tick, with the
-    # previous tick's held control in the predict step
-    if base.has_noise and base.estimator == "kf":
-        xest_next = kalman.kf_step(carry.xest, carry.prev_u,
-                                   x_after_first[:, :2], base.Ao, base.Bou,
-                                   base.Co, base.L_kf)
-        P_next = carry.P
-    elif base.has_noise:
-        z = torch.stack([torch.linalg.vector_norm(x_after_first[:, :2], dim=1),
-                         torch.atan2(x_after_first[:, 1], x_after_first[:, 0])],
-                        1)
-        st = ukf.step(ukf.UKFState(x=carry.xest, P=carry.P), carry.prev_u, z,
-                      base.ukf_w, base.Ao, base.Bou, base.Qw, base.R_meas)
-        xest_next, P_next = st.x, st.P
-    else:
-        xest_next = torch.cat([x_after_first,
-                               torch.zeros_like(x_after_first[:, :2])], 1)
-        P_next = carry.P
+        # --- measurement + estimator one substep after the tick, with the
+        # previous tick's held control in the predict step
+        with span("step.estimate"):
+            if base.has_noise and base.estimator == "kf":
+                xest_next = kalman.kf_step(carry.xest, carry.prev_u,
+                                           x_after_first[:, :2], base.Ao, base.Bou,
+                                           base.Co, base.L_kf)
+                P_next = carry.P
+            elif base.has_noise:
+                z = torch.stack([torch.linalg.vector_norm(x_after_first[:, :2], dim=1),
+                                 torch.atan2(x_after_first[:, 1], x_after_first[:, 0])],
+                                1)
+                st = ukf.step(ukf.UKFState(x=carry.xest, P=carry.P), carry.prev_u, z,
+                              base.ukf_w, base.Ao, base.Bou, base.Qw, base.R_meas)
+                xest_next, P_next = st.x, st.P
+            else:
+                xest_next = torch.cat([x_after_first,
+                                       torch.zeros_like(x_after_first[:, :2])], 1)
+                P_next = carry.P
 
-    dyn, lineq, uineq = dd._bounds(base, xest_next,
-                                   base.geom.is_reject.expand(B))
-    l_new = torch.cat([-xest_next[:, :4], carry.l[:, 4:dims.n_eq], lineq], 1)
-    u_new = torch.cat([-xest_next[:, :4], carry.u[:, 4:dims.n_eq], uineq], 1)
+        with span("step.bounds"):
+            dyn, lineq, uineq = dd._bounds(base, xest_next,
+                                           base.geom.is_reject.expand(B))
+            l_new = torch.cat([-xest_next[:, :4], carry.l[:, 4:dims.n_eq], lineq], 1)
+            u_new = torch.cat([-xest_next[:, :4], carry.u[:, 4:dims.n_eq], uineq], 1)
 
-    def keep(new, old):
-        return torch.where(alive.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+        def keep(new, old):
+            return torch.where(alive.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
 
-    st = res.state
-    old = carry.admm_state
-    new_carry = _CCarry(
-        x_true=x_end,
-        xest=keep(xest_next, carry.xest),
-        xest_stored=keep(dyn.xest_stored, carry.xest_stored),
-        P=keep(P_next, carry.P),
-        xintf=keep(xintf_new, carry.xintf),
-        prev_u=keep(ctrl, carry.prev_u),
-        l=keep(l_new, carry.l),
-        u=keep(u_new, carry.u),
-        c1=keep(dyn.c1, carry.c1),
-        c2=keep(dyn.c2, carry.c2),
-        s=keep(dyn.s, carry.s),
-        admm_state=admm.ADMMState(
-            xbar=keep(st.xbar, old.xbar), ybar=keep(st.ybar, old.ybar),
-            zbar=keep(st.zbar, old.zbar),
-            rho_scale=keep(st.rho_scale, old.rho_scale),
-            minv=keep(st.minv, old.minv), minv_ok=st.minv_ok,
-            ref_coef=keep(st.ref_coef, old.ref_coef)),
-        alive=alive,
-        i_term_sub=i_term_sub,
-        succ=succ,
-    )
-    pre = carry.alive  # control and codes are recorded with PRE-tick aliveness
-    outs = (
-        x_end,
-        keep(dyn.xest_stored, carry.xest_stored),
-        torch.where(pre[:, None], ctrl, 0.0),
-        torch.where(pre, code, 0),
-        torch.where(pre, res.status, -1),
-        res.iters,
-        torch.where(pre, res.done_iters, 0),
-        x_sub,
-    )
-    return new_carry, outs
+        st = res.state
+        old = carry.admm_state
+        new_carry = _CCarry(
+            x_true=x_end,
+            xest=keep(xest_next, carry.xest),
+            xest_stored=keep(dyn.xest_stored, carry.xest_stored),
+            P=keep(P_next, carry.P),
+            xintf=keep(xintf_new, carry.xintf),
+            prev_u=keep(ctrl, carry.prev_u),
+            l=keep(l_new, carry.l),
+            u=keep(u_new, carry.u),
+            c1=keep(dyn.c1, carry.c1),
+            c2=keep(dyn.c2, carry.c2),
+            s=keep(dyn.s, carry.s),
+            admm_state=admm.ADMMState(
+                xbar=keep(st.xbar, old.xbar), ybar=keep(st.ybar, old.ybar),
+                zbar=keep(st.zbar, old.zbar),
+                rho_scale=keep(st.rho_scale, old.rho_scale),
+                minv=keep(st.minv, old.minv), minv_ok=st.minv_ok,
+                ref_coef=keep(st.ref_coef, old.ref_coef)),
+            alive=alive,
+            i_term_sub=i_term_sub,
+            succ=succ,
+        )
+        pre = carry.alive  # control and codes are recorded with PRE-tick aliveness
+        outs = (
+            x_end,
+            keep(dyn.xest_stored, carry.xest_stored),
+            torch.where(pre[:, None], ctrl, 0.0),
+            torch.where(pre, code, 0),
+            torch.where(pre, res.status, -1),
+            res.iters,
+            torch.where(pre, res.done_iters, 0),
+            x_sub,
+        )
+        return new_carry, outs
 
 
 def _init(engine: ContinuousEngine, noise_draws, x0b):

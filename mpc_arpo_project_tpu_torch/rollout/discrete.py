@@ -33,6 +33,7 @@ from mpc_arpo_project_tpu_torch.config import (
 from mpc_arpo_project_tpu_torch.ops import (
     admm, constraints, host_synthesis, kalman, riccati, ukf)
 from mpc_arpo_project_tpu_torch.ops.qp_builder import QPDims, build_qp
+from mpc_arpo_project_tpu_torch.utils.timing import span
 
 
 @dataclass(frozen=True)
@@ -315,128 +316,133 @@ def _init_carry(engine: DiscreteEngine, batch: int, x0b: torch.Tensor,
 
 def _step(engine: DiscreteEngine, carry: _Carry, i: int, noise_i: torch.Tensor,
           is_reject_b: Optional[torch.Tensor] = None):
-    """One closed-loop control step for the whole batch; returns the new
-    carry and the step's telemetry tuple."""
-    dims = engine.dims
-    B = carry.x_true.shape[0]
-    is_reject_b = _reject_b(engine, B, is_reject_b)
-    x = carry.x_true
+    """One closed-loop control step for the whole batch, in a ``loop.step``
+    span; returns the new carry and the step's telemetry tuple."""
+    with span("loop.step"):
+        dims = engine.dims
+        B = carry.x_true.shape[0]
+        is_reject_b = _reject_b(engine, B, is_reject_b)
+        x = carry.x_true
 
-    # --- termination and incremental success scan
-    pos_norm = torch.linalg.vector_norm(x[:, :2], dim=1)
-    back = x[:, 1] if engine.in_track else x[:, 0]
-    term_now = (pos_norm < engine.rp) | (back < engine.rp - engine.rtol)
-    newly_dead = carry.alive & term_now
-    alive = carry.alive & ~term_now
-    i_term = carry.i_term.masked_fill(newly_dead, i)
-    dist_k = torch.linalg.vector_norm(x[:, :2] - engine.xr[:2][None, :], dim=1)
-    ang_k = torch.atan(x[:, 3] / x[:, 2]).abs() * (180.0 / math.pi)
-    ok_k = (dist_k <= engine.dist_tol) & (ang_k <= engine.ang_tol)
-    succ = carry.succ | (alive & ok_k) if i >= 1 else carry.succ
+        # --- termination and incremental success scan
+        pos_norm = torch.linalg.vector_norm(x[:, :2], dim=1)
+        back = x[:, 1] if engine.in_track else x[:, 0]
+        term_now = (pos_norm < engine.rp) | (back < engine.rp - engine.rtol)
+        newly_dead = carry.alive & term_now
+        alive = carry.alive & ~term_now
+        i_term = carry.i_term.masked_fill(newly_dead, i)
+        dist_k = torch.linalg.vector_norm(x[:, :2] - engine.xr[:2][None, :], dim=1)
+        ang_k = torch.atan(x[:, 3] / x[:, 2]).abs() * (180.0 / math.pi)
+        ok_k = (dist_k <= engine.dist_tol) & (ang_k <= engine.ang_tol)
+        succ = carry.succ | (alive & ok_k) if i >= 1 else carry.succ
 
-    # --- QP solve (warm-started); dead scenarios are skipped in the solver
-    res = admm.admm_solve(engine.prob, (carry.c1, carry.c2, carry.s),
-                          carry.l, carry.u, carry.admm_state, engine.settings,
-                          active=alive)
-    solved = res.status == admm.SOLVED
+        # --- QP solve (warm-started); dead scenarios are skipped in the solver
+        res = admm.admm_solve(engine.prob, (carry.c1, carry.c2, carry.s),
+                              carry.l, carry.u, carry.admm_state, engine.settings,
+                              active=alive)
+        with span("step.control"):
+            solved = res.status == admm.SOLVED
 
-    # --- controller hierarchy
-    i0u = (dims.Nx + 1) * dims.nx
-    u_mpc = res.x[:, i0u: i0u + 2]
-    e = carry.xest_stored
-    cx, cy = engine.debris_center[0], engine.debris_center[1]
-    h = engine.debris_half
-    in_box = ((e[:, 0] - (cx + h) < 0) & (e[:, 0] - (cx - h) > 0)
-              & (e[:, 1] < cy + h) & (e[:, 1] > cy - h))
-    xintf_db = carry.xintf + e[:, 1] - (cy + h)
-    u_db = -(e[:, :4] @ engine.K_total.T) - xintf_db[:, None] * engine.K_i[:, 0][None, :]
-    xintf_fs = carry.xintf + (e[:, :4] @ engine.Crefx[0]) - engine.xr[0]
-    u_fs = -(e[:, :4] @ engine.Kpf.T) - xintf_fs[:, None] * engine.Kif[:, 0][None, :]
-    u_fail = torch.where(in_box[:, None], u_db, u_fs)
-    xintf_new = torch.where(solved, 0.0, torch.where(in_box, xintf_db, xintf_fs))
-    ctrl = torch.where(solved[:, None], u_mpc, u_fail)
-    code = torch.where(solved, admm.SOLVED,
-                       torch.where(in_box, 3, 2)).to(torch.int32)
+            # --- controller hierarchy
+            i0u = (dims.Nx + 1) * dims.nx
+            u_mpc = res.x[:, i0u: i0u + 2]
+            e = carry.xest_stored
+            cx, cy = engine.debris_center[0], engine.debris_center[1]
+            h = engine.debris_half
+            in_box = ((e[:, 0] - (cx + h) < 0) & (e[:, 0] - (cx - h) > 0)
+                      & (e[:, 1] < cy + h) & (e[:, 1] > cy - h))
+            xintf_db = carry.xintf + e[:, 1] - (cy + h)
+            u_db = -(e[:, :4] @ engine.K_total.T) - xintf_db[:, None] * engine.K_i[:, 0][None, :]
+            xintf_fs = carry.xintf + (e[:, :4] @ engine.Crefx[0]) - engine.xr[0]
+            u_fs = -(e[:, :4] @ engine.Kpf.T) - xintf_fs[:, None] * engine.Kif[:, 0][None, :]
+            u_fail = torch.where(in_box[:, None], u_db, u_fs)
+            xintf_new = torch.where(solved, 0.0, torch.where(in_box, xintf_db, xintf_fs))
+            ctrl = torch.where(solved[:, None], u_mpc, u_fail)
+            code = torch.where(solved, admm.SOLVED,
+                               torch.where(in_box, 3, 2)).to(torch.int32)
 
-    # --- sequential saturation quirk
-    umax0 = engine.umax[0]
-    n1 = torch.linalg.vector_norm(ctrl, dim=1)
-    over = n1 > umax0
-    c0 = torch.where(over, ctrl[:, 0] * umax0 / n1, ctrl[:, 0])
-    n2 = torch.sqrt(c0 ** 2 + ctrl[:, 1] ** 2)
-    c1_ = torch.where(over, ctrl[:, 1] * umax0 / n2, ctrl[:, 1])
-    ctrl = torch.stack([c0, c1_], 1)
+            # --- sequential saturation quirk
+            umax0 = engine.umax[0]
+            n1 = torch.linalg.vector_norm(ctrl, dim=1)
+            over = n1 > umax0
+            c0 = torch.where(over, ctrl[:, 0] * umax0 / n1, ctrl[:, 0])
+            n2 = torch.sqrt(c0 ** 2 + ctrl[:, 1] ** 2)
+            c1_ = torch.where(over, ctrl[:, 1] * umax0 / n2, ctrl[:, 1])
+            ctrl = torch.stack([c0, c1_], 1)
 
-    # --- plant step with the PREVIOUS control
-    x_next = x @ engine.Ad.T + carry.prev_u @ engine.Bd.T + noise_i
+        # --- plant step with the PREVIOUS control
+        with span("step.plant"):
+            x_next = x @ engine.Ad.T + carry.prev_u @ engine.Bd.T + noise_i
 
-    # --- estimation
-    if engine.has_noise and engine.estimator == "kf":
-        # steady-state KF: linear position measurement, fixed gain; the
-        # covariance is static by construction
-        xest_next = kalman.kf_step(carry.xest, carry.prev_u, x_next[:, :2],
-                                   engine.Ao, engine.Bou, engine.Co,
-                                   engine.L_kf)
-        P_next = carry.P
-    elif engine.has_noise:
-        z = torch.stack([torch.linalg.vector_norm(x_next[:, :2], dim=1),
-                         torch.atan2(x_next[:, 1], x_next[:, 0])], 1)
-        st = ukf.step(ukf.UKFState(x=carry.xest, P=carry.P), carry.prev_u, z,
-                      engine.ukf_w, engine.Ao, engine.Bou, engine.Qw,
-                      engine.R_meas)
-        xest_next, P_next = st.x, st.P
-    else:
-        xest_next = torch.cat([x_next, torch.zeros_like(x_next[:, :2])], 1)
-        P_next = carry.P
+        # --- estimation
+        with span("step.estimate"):
+            if engine.has_noise and engine.estimator == "kf":
+                # steady-state KF: linear position measurement, fixed gain; the
+                # covariance is static by construction
+                xest_next = kalman.kf_step(carry.xest, carry.prev_u, x_next[:, :2],
+                                           engine.Ao, engine.Bou, engine.Co,
+                                           engine.L_kf)
+                P_next = carry.P
+            elif engine.has_noise:
+                z = torch.stack([torch.linalg.vector_norm(x_next[:, :2], dim=1),
+                                 torch.atan2(x_next[:, 1], x_next[:, 0])], 1)
+                st = ukf.step(ukf.UKFState(x=carry.xest, P=carry.P), carry.prev_u, z,
+                              engine.ukf_w, engine.Ao, engine.Bou, engine.Qw,
+                              engine.R_meas)
+                xest_next, P_next = st.x, st.P
+            else:
+                xest_next = torch.cat([x_next, torch.zeros_like(x_next[:, :2])], 1)
+                P_next = carry.P
 
-    # --- bound + constraint updates
-    dyn, lineq, uineq = _bounds(engine, xest_next, is_reject_b)
-    l_new = torch.cat([-xest_next[:, :4], carry.l[:, 4:dims.n_eq], lineq], 1)
-    u_new = torch.cat([-xest_next[:, :4], carry.u[:, 4:dims.n_eq], uineq], 1)
+        # --- bound + constraint updates
+        with span("step.bounds"):
+            dyn, lineq, uineq = _bounds(engine, xest_next, is_reject_b)
+            l_new = torch.cat([-xest_next[:, :4], carry.l[:, 4:dims.n_eq], lineq], 1)
+            u_new = torch.cat([-xest_next[:, :4], carry.u[:, 4:dims.n_eq], uineq], 1)
 
-    # --- freeze dead scenarios
-    def keep(new, old):
-        return torch.where(alive.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+        # --- freeze dead scenarios
+        def keep(new, old):
+            return torch.where(alive.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
 
-    st = res.state
-    old = carry.admm_state
-    new_carry = _Carry(
-        x_true=keep(x_next, x),
-        xest=keep(xest_next, carry.xest),
-        xest_stored=keep(dyn.xest_stored, carry.xest_stored),
-        P=keep(P_next, carry.P),
-        xintf=keep(xintf_new, carry.xintf),
-        prev_u=keep(ctrl, carry.prev_u),
-        l=keep(l_new, carry.l),
-        u=keep(u_new, carry.u),
-        c1=keep(dyn.c1, carry.c1),
-        c2=keep(dyn.c2, carry.c2),
-        s=keep(dyn.s, carry.s),
-        admm_state=admm.ADMMState(
-            xbar=keep(st.xbar, old.xbar), ybar=keep(st.ybar, old.ybar),
-            zbar=keep(st.zbar, old.zbar),
-            rho_scale=keep(st.rho_scale, old.rho_scale),
-            minv=keep(st.minv, old.minv), minv_ok=st.minv_ok,
-            ref_coef=keep(st.ref_coef, old.ref_coef)),
-        alive=alive, i_term=i_term, succ=succ,
-    )
+        st = res.state
+        old = carry.admm_state
+        new_carry = _Carry(
+            x_true=keep(x_next, x),
+            xest=keep(xest_next, carry.xest),
+            xest_stored=keep(dyn.xest_stored, carry.xest_stored),
+            P=keep(P_next, carry.P),
+            xintf=keep(xintf_new, carry.xintf),
+            prev_u=keep(ctrl, carry.prev_u),
+            l=keep(l_new, carry.l),
+            u=keep(u_new, carry.u),
+            c1=keep(dyn.c1, carry.c1),
+            c2=keep(dyn.c2, carry.c2),
+            s=keep(dyn.s, carry.s),
+            admm_state=admm.ADMMState(
+                xbar=keep(st.xbar, old.xbar), ybar=keep(st.ybar, old.ybar),
+                zbar=keep(st.zbar, old.zbar),
+                rho_scale=keep(st.rho_scale, old.rho_scale),
+                minv=keep(st.minv, old.minv), minv_ok=st.minv_ok,
+                ref_coef=keep(st.ref_coef, old.ref_coef)),
+            alive=alive, i_term=i_term, succ=succ,
+        )
 
-    def ratio(r, tol):
-        return torch.where((tol > 0) & torch.isfinite(tol), r / tol, r)
+        def ratio(r, tol):
+            return torch.where((tol > 0) & torch.isfinite(tol), r / tol, r)
 
-    out = (
-        keep(x_next, x),
-        keep(dyn.xest_stored, carry.xest_stored),
-        keep(ctrl, torch.zeros_like(ctrl)),
-        noise_i,
-        torch.where(alive, code, 0),
-        torch.where(alive, res.status, -1),
-        res.iters,
-        torch.where(alive, res.done_iters, 0),
-        torch.where(alive, ratio(res.pri_res, res.pri_tol), 0.0),
-        torch.where(alive, ratio(res.dua_res, res.dua_tol), 0.0),
-    )
-    return new_carry, out
+        out = (
+            keep(x_next, x),
+            keep(dyn.xest_stored, carry.xest_stored),
+            keep(ctrl, torch.zeros_like(ctrl)),
+            noise_i,
+            torch.where(alive, code, 0),
+            torch.where(alive, res.status, -1),
+            res.iters,
+            torch.where(alive, res.done_iters, 0),
+            torch.where(alive, ratio(res.pri_res, res.pri_tol), 0.0),
+            torch.where(alive, ratio(res.dua_res, res.dua_tol), 0.0),
+        )
+        return new_carry, out
 
 
 def rollout_chunked(

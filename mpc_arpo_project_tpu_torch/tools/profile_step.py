@@ -12,7 +12,11 @@ Chrome trace:
 * the card's counterpart of the JAX tool's device track: the window, the
   device's busy time (the union of its events over all streams), the idle
   share ``1 - busy / window``, the longest idle gaps with the host op that
-  spans each, and the idle ms per step by that host op.
+  spans each, and the idle ms per step by that host op;
+* the program's spans (``utils.timing.span``): by name, their count a
+  step, their host self time a step (less their child spans), and the
+  device ms a step launched under them and the idle ms a step under them
+  (child spans included).
 
     python -m mpc_arpo_project_tpu_torch.tools.profile_step \\
         [--batch 1024] [--segs 2] [--start-seg 6] [--top 40] [--cpu]
@@ -60,6 +64,10 @@ NOT_HOST_CATS = ("Trace", "gpu_user_annotation")
 # the profiler's own host work (CUPTI's "Activity Buffer Request"): a gap
 # under it is the profiler's cost, and is named so
 OVERHEAD_CAT = "overhead"
+# the program's spans (``utils.timing.span``), and the host calls that
+# launch device work, matched to it by the trace's correlation id
+SPAN_CAT = "user_annotation"
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # the hand-written kernels of the flagship 'eig' path: wrapper, the CUDA
 # symbol its launches carry in the trace, and its library's build
 KERNELS = {"eig_chunk": (admm_eig.eig_chunk, "eig_chunk_kernel",
@@ -185,10 +193,11 @@ def _innermost(host, points):
     return names
 
 
-def _idle(device, host, n_steps):
-    """The window's idle figures (``aggregate``'s ``device``) from the
-    device's (start, end) intervals and the host's (start, end, name)
-    events, given in microseconds."""
+def _gaps(device, host):
+    """(t0, t1, busy, gaps) of the window from the earliest start to the
+    latest end of the device's (start, end) and the host's (start, end,
+    name) events: the device's busy time (the union of its intervals) and
+    its idle gaps (start, end)."""
     t0 = min([s for s, _ in device] + [s for s, _, _ in host])
     t1 = max([e for _, e in device] + [e for _, e, _ in host])
     busy, gaps, edge = 0.0, [], t0
@@ -200,6 +209,14 @@ def _idle(device, host, n_steps):
             edge = e
     if t1 > edge:
         gaps.append((edge, t1))
+    return t0, t1, busy, gaps
+
+
+def _idle(device, host, n_steps):
+    """The window's idle figures (``aggregate``'s ``device``) from the
+    device's (start, end) intervals and the host's (start, end, name)
+    events, given in microseconds."""
+    t0, t1, busy, gaps = _gaps(device, host)
     names = _innermost(host, [(a + b) / 2 for a, b in gaps])
     names = ["(no host op)" if n is None else n for n in names]
     by_op = collections.defaultdict(float)
@@ -277,6 +294,80 @@ def aggregate(events, n_steps, top):
         device=_idle(device, host, n_steps) if device else None)
 
 
+def _covering(spans, points):
+    """For each of ``points`` (increasing), the set of names of the spans
+    (start, end, name; nested, as one thread's are) that cover it."""
+    spans = sorted(spans, key=lambda sp: (sp[0], -sp[1]))
+    stack, out, i = [], [], 0
+    for p in points:
+        while i < len(spans) and spans[i][0] <= p:
+            while stack and stack[-1][1] < spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < p:
+            stack.pop()
+        out.append({name for _, _, name in stack})
+    return out
+
+
+def span_table(events, n_steps):
+    """The program's spans over a window of ``n_steps`` steps: (name, count,
+    host self ms, device ms, idle ms), each a step, by name. Self time is
+    the span's time less that of its child spans; device ms sums the
+    device's events whose launch (the host call of the same correlation id)
+    lies in the span, idle ms the idle gaps whose midpoint does, child
+    spans included. Both are None where the trace holds no device event."""
+    spans = sorted(((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+                    for e in events
+                    if e.get("ph") == "X" and e.get("cat") == SPAN_CAT),
+                   key=lambda sp: (sp[0], -sp[1]))
+    count = collections.Counter(name for _, _, name in spans)
+    self_us = collections.defaultdict(float)
+    stack = []
+    for s, e, name in spans:
+        while stack and stack[-1][1] <= s:
+            stack.pop()
+        self_us[name] += e - s
+        if stack:
+            self_us[stack[-1][2]] -= e - s
+        stack.append((s, e, name))
+    launch_ts, device, host = {}, [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat in LAUNCH_CATS and "correlation" in e.get("args", {}):
+            launch_ts[e["args"]["correlation"]] = e["ts"]
+        if cat in DEVICE_CATS:
+            device.append(e)
+        elif cat not in NOT_HOST_CATS:
+            host.append((e["ts"], e["ts"] + e.get("dur", 0), e.get("name")))
+    dev_us = idle_us = None
+    if device:
+        dev_us = collections.defaultdict(float)
+        launched = sorted(
+            (launch_ts[e["args"]["correlation"]], e.get("dur", 0))
+            for e in device
+            if e.get("args", {}).get("correlation") in launch_ts)
+        for names, (_, dur) in zip(
+                _covering(spans, [ts for ts, _ in launched]), launched):
+            for name in names:
+                dev_us[name] += dur
+        idle_us = collections.defaultdict(float)
+        gaps = _gaps([(e["ts"], e["ts"] + e.get("dur", 0)) for e in device],
+                     host)[3]
+        for names, (a, b) in zip(
+                _covering(spans, [(a + b) / 2 for a, b in gaps]), gaps):
+            for name in names:
+                idle_us[name] += b - a
+    per = lambda us: us / 1e3 / n_steps
+    return [(name, count[name] / n_steps, per(self_us[name]),
+             None if dev_us is None else per(dev_us[name]),
+             None if idle_us is None else per(idle_us[name]))
+            for name in sorted(count)]
+
+
 def print_tables(agg, out=print):
     """The JAX tool's two tables, in its format."""
     out("\n== total X-event ms by process track ==")
@@ -302,6 +393,21 @@ def print_idle(dev, n_steps, out=print):
     out("  idle ms per step by host op (gaps):")
     for name, ms, count in dev["idle_by_host_op"]:
         out(f"  {ms:9.3f} ms/step  x{count:<6d} {name[:110]}")
+
+
+def print_spans(rows, n_steps, out=print):
+    """``span_table``'s rows."""
+    out(f"\n== program spans over {n_steps} steps (a step: count, host self "
+        "ms, device ms launched under it, idle ms under it) ==")
+    if not rows:
+        out("  (no program span in the trace)")
+        return
+    out(f"  {'count':>9}  {'self ms':>12}  {'device ms':>12}  "
+        f"{'idle ms':>12}  span")
+    for name, n, self_ms, dev_ms, idle_ms in rows:
+        cells = [f"{v:12.3f}" if v is not None else "not measured"
+                 for v in (self_ms, dev_ms, idle_ms)]
+        out(f"  {n:9.2f}  " + "  ".join(cells) + f"  {name}")
 
 
 def main(argv=None) -> int:
@@ -331,6 +437,7 @@ def main(argv=None) -> int:
           + " ms/step")
     agg = aggregate(prof.events, n, args.top)
     print_tables(agg)
+    print_spans(span_table(prof.events, n), n)
     if agg["device"] is None:
         if device.type == "cuda":
             print("NO DEVICE EVENT IN THE TRACE: the profiler saw no kernel "
@@ -345,6 +452,9 @@ def main(argv=None) -> int:
         seen = kernel_events(prof.events, symbol)
         print(f"  {name}: {prof.launches[name]} / {seen}")
         missed += seen != prof.launches[name]
+    print("  solve.chunk spans: " + str(sum(
+        1 for e in prof.events if e.get("ph") == "X"
+        and e.get("cat") == SPAN_CAT and e.get("name") == "solve.chunk")))
     return 1 if missed else 0
 
 

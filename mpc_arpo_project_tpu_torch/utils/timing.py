@@ -1,10 +1,32 @@
-"""Timing / profiling harness: wall time of device work, an accumulating
-section timer, and a ``torch.profiler`` trace context.
+"""Timing / profiling harness: wall time of device work, the program's
+spans, and a ``torch.profiler`` trace context.
 
 Counterpart of ``mpc_arpo_project_tpu/utils/timing.py``. A CUDA call
 returns before the device finishes, so :func:`device_time` synchronises the
 device of the output before it reads the clock; CPU tensors are finished
 when the call returns.
+
+The spans (:func:`span`) mark the program's layers in a ``torch.profiler``
+trace, on the clock of the device's kernels, and cost one check of the
+profiler's state when no profiler runs. Their names are a fixed vocabulary;
+a count of spans is the counter (``record_function`` exports no arguments):
+
+=====================  ==================================================
+``loop.step``          a discrete step (``rollout/discrete.py::_step``)
+``loop.tick``          a continuous tick (``rollout/continuous.py::_tick``)
+``step.estimate``      the UKF or KF update
+``step.bounds``        the constraint rebuild and the new ``l``, ``u``
+``step.control``       the controller hierarchy and the saturation
+``step.plant``         the plant: the discrete line, or ``rk4_tick``
+``solve``              ``ops/admm.py::admm_solve``
+``solve.setup``        'eig': slot assignment to the first refresh
+``solve.refresh``      'eig': one Woodbury inner-inverse refresh
+``solve.chunk``        one check chunk of the solve's loop
+``kernel.eig_chunk``   the host side of one ``eig_chunk`` CUDA launch
+``solve.read``         one device-to-host read of the solve
+``solve.compact``      'eig': one compaction of the running slots
+``solve.finish``       'eig': the scatter back to problem order
+=====================  ==================================================
 """
 
 from __future__ import annotations
@@ -41,27 +63,23 @@ def device_time(fn: Callable, *args, reps: int = 3, warmup: int = 1,
     return float(np.median(times))
 
 
-class Timer:
-    """Accumulating section timer for host-side orchestration code."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self):
-        self.acc = {}
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.acc[name] = self.acc.get(name, 0.0) + time.perf_counter() - t0
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler records,
+    else a shared context that does nothing. ``name`` is one of the
+    module's vocabulary, a constant string."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
-    def report(self) -> str:
-        total = sum(self.acc.values()) or 1.0
-        lines = [
-            f"{k:>24}: {v:8.3f}s ({100*v/total:5.1f}%)"
-            for k, v in sorted(self.acc.items(), key=lambda kv: -kv[1])
-        ]
-        return "\n".join(lines)
+
+def host_read(t: torch.Tensor):
+    """``t.item()`` for a 0-d tensor, else ``t.tolist()``, in a
+    ``solve.read`` span: the solve's device-to-host reads."""
+    with span("solve.read"):
+        return t.item() if t.dim() == 0 else t.tolist()
 
 
 @contextlib.contextmanager

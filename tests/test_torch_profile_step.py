@@ -237,6 +237,60 @@ def test_idle_figures_are_exact():
     assert ps.aggregate(host_only, 2, 40)["device"] is None
 
 
+def _spanned():
+    """Two steps over 1000 us with the program's spans: step A [0, 410]
+    (solve [50, 300] > chunk [100, 250] > read [200, 250]; bounds [320,
+    380]) and step B [505, 910] (solve [520, 800] > chunk [540, 700] > read
+    [680, 700]; read [750, 760] in the solve). Launches (host start ->
+    device us): 20 -> 20, 60 -> 20, 110 -> 70, 210 -> 5 (a copy), 330 ->
+    30, 425 (between the steps) -> 10, 550 -> 100, 690 -> 5 (a copy), 820
+    -> 20; and a kernel of 10 at [950, 960] launched before the trace."""
+    launches = [(20, 25, 45), (60, 70, 90), (110, 120, 190), (210, 215, 220),
+                (330, 340, 370), (425, 430, 440), (550, 560, 660),
+                (690, 690, 695), (820, 830, 850)]
+    ev = []
+    for corr, (ts, d0, d1) in enumerate(launches):
+        ev.append(dict(_x(HOST, 11, "cuda_runtime", "cudaLaunchKernel", ts,
+                          ts + 3), args=dict(correlation=corr)))
+        cat = "gpu_memcpy" if d1 - d0 == 5 else "kernel"
+        ev.append(dict(_x(CARD, 7, cat, "k", d0, d1),
+                       args=dict(correlation=corr)))
+    ev.append(dict(_x(CARD, 7, "kernel", "k", 950, 960),
+                   args=dict(correlation=99)))
+    ev.append(_x(HOST, 11, "cpu_op", "aten::empty", 990, 1000))
+    for name, s, e in [
+            ("loop.step", 0, 410), ("solve", 50, 300),
+            ("solve.chunk", 100, 250), ("solve.read", 200, 250),
+            ("step.bounds", 320, 380), ("loop.step", 505, 910),
+            ("solve", 520, 800), ("solve.chunk", 540, 700),
+            ("solve.read", 680, 700), ("solve.read", 750, 760)]:
+        ev.append(_x(HOST, 11, "user_annotation", name, s, e))
+        ev.append(_x(CARD, 7, "gpu_user_annotation", name, s, e))
+    return ev
+
+
+def test_span_table_on_a_synthetic_trace(capsys):
+    """Per span a step: the count, the host self time (less the child
+    spans), the device ms launched under it and the idle ms under it."""
+    rows = ps.span_table(_spanned(), 2)
+    want = [("loop.step", 1.0, 0.1125, 0.135, 0.275),
+            ("solve", 1.0, 0.105, 0.1, 0.1825),
+            ("solve.chunk", 1.0, 0.12, 0.09, 0.0425),
+            ("solve.read", 1.5, 0.04, 0.005, 0.0125),
+            ("step.bounds", 0.5, 0.03, 0.015, 0.0)]
+    assert [r[0] for r in rows] == [w[0] for w in want]
+    for r, w in zip(rows, want):
+        assert r[1:] == pytest.approx(w[1:], abs=1e-12), r[0]
+    # without device events the device columns are not measured
+    host_only = [e for e in _spanned() if e["pid"] != CARD]
+    rows = ps.span_table(host_only, 2)
+    assert [r[3:] for r in rows] == [(None, None)] * 5
+    ps.print_spans(rows, 2)
+    out = capsys.readouterr().out
+    assert "not measured" in out and "solve.read" in out
+    assert ps.span_table(_stand_in(), 2) == []
+
+
 class _StubProfiler:
     """Stands in for ``torch.profiler.profile``: records when it starts and
     stops and writes an empty trace."""
@@ -319,6 +373,8 @@ def test_cli_runs_on_the_cpu_and_refuses_without_a_card(monkeypatch,
     assert "python (CPU)" in out or "python3 (CPU)" in out
     assert "== device ops over 10 steps" in out
     assert "(no device events: a CPU run)" in out
+    assert "== program spans over 10 steps" in out
+    assert "loop.step" in out and "solve.chunk" in out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ps.main([])
