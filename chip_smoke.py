@@ -16,8 +16,9 @@ Drives ``mpc_arpo_project_tpu_torch`` (never JAX, nor the JAX package) on
    beside its plain twin:
    - ``eig_chunk`` ('eig' engine), also on the after-5-steps chunk cut to
      11 live slots (the costliest class of the chunk census), with its
-     bound and HBM floor, and a sweep of its slots per block S over live
-     counts (the evidence for ``admm_eig.eig_group``);
+     bound and HBM floor, and a sweep of its layouts (slots per block S;
+     in fp32 also a cluster of C blocks per live slot) over live counts
+     (the evidence for ``admm_eig.eig_layout``);
    - ``admm_chunk``, also on a 32-row overtime lane of the after-5-steps
      call with 9 live slots (the costliest class of its chunk census),
      with its bound, and a sweep of its layouts (cluster size C, slots per
@@ -739,9 +740,9 @@ def time_ns_case(label, kernel, plain, args, kw, n_need, M, n=20):
 # section 5: chunks of 1-32 live slots, 10.6 on average, 47% of the chunk
 # span on the parent kernel), timed beside the 1024-slot chunk
 COSTLY_LIVE = 11
-# live counts of the sweep over slots per block that sets eig_group's
-# policy (and the chunk's own 1024)
-SWEEP_LIVE = (11, 32, 128, 192, 264, 384, 528, 768)
+# live counts of the sweep over layouts that sets eig_layout's policy (and
+# the chunk's own 1024)
+SWEEP_LIVE = (1, 7, 11, 15, 16, 30, 33, 66, 128, 192, 264, 384, 528, 768)
 
 
 def _with_live(args, kw, n_live):
@@ -797,8 +798,9 @@ def check_eig_kernel(engine, B, record=None):
     after-5-steps chunk (all live slots) and on the after-5-steps chunk cut
     to the census's costliest live class, in fp32 and fp64 (the calls go to
     ``record`` when one is given); timed at both live counts beside its
-    twin, bound and HBM floor; then a sweep of the slots per block S over
-    live counts, which ``admm_eig.eig_group``'s policy follows. Returns the
+    twin, bound and HBM floor; then a sweep of the layouts (slots per
+    block S, clusters of C blocks) over live counts, which
+    ``admm_eig.eig_layout``'s policy follows. Returns the
     JSON entry (without launches)."""
     import torch
     from mpc_arpo_project_tpu_torch.ops import admm_eig
@@ -821,6 +823,13 @@ def check_eig_kernel(engine, B, record=None):
                        torch.float64, 1e-10, f"fp64 {label}", record)
         max_abs = max(max_abs, err32)
     timed = {}
+    # the card's wave tables at the chunk's shapes, by type
+    a, k = sets[1]
+    dims = (a[7].shape[1], a[8].shape[1], a[1].shape[1], a[16].shape[1])
+    waves_of = {dt: admm_eig._waves(dt, *dims, a[7].device)
+                for dt in (torch.float32, torch.float64)}
+    layout = lambda n, dt, bt=k["bt"]: admm_eig.eig_layout(n, bt, dt,
+                                                         waves_of[dt])
     for label, (a, k) in zip(labels[1:], sets[1:]):
         live = int((~k["done"]).sum())
         ms = time_ms(lambda: admm_eig.eig_chunk(*a, **k))
@@ -831,29 +840,36 @@ def check_eig_kernel(engine, B, record=None):
             lambda: admm_eig.eig_chunk_ref(*a64, **_plain(k64)))
         bound_ms, bound_by = eig_chunk_bound(a, k, admm_eig.eig_chunk(*a, **k))
         floor = eig_chunk_floor(a, k)
-        log(f"eig_chunk, 25 iterations, {label} ({live} live slots, S="
-            f"{admm_eig.eig_group(live, k['bt'], torch.float32)} fp32, "
-            f"{admm_eig.eig_group(live, k['bt'], torch.float64)} fp64): fp32 "
+        log(f"eig_chunk, 25 iterations, {label} ({live} live slots, layout "
+            f"(C, S) {layout(live, torch.float32)} fp32, "
+            f"{layout(live, torch.float64)} fp64): fp32 "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), HBM floor of this design (T^-1 "
             f"read every iteration) {floor:.3f} ms; fp64 kernel {ms64:.3f} "
             f"ms, plain {plain_ms64:.3f} ms (median of 20, CUDA events)")
         timed[label] = (ms, plain_ms, bound_ms, bound_by)
 
-    # slots per block against live count (median of 10 each)
+    # layouts against live count (median of 10 each): slots per block S,
+    # and in fp32 a cluster of C blocks per live slot
     a, k = sets[1]
     n_all = int((~k["done"]).sum())
     for dt in (torch.float32, torch.float64):
         a_d, k_d = _cast(a, k, dt)
-        groups = [S for S in (1, 2, 4, 8)
-                  if S <= admm_eig.GROUP_CAP[dt] and k["bt"] % S == 0]
+        if waves_of[dt]:
+            log(f"  eig_chunk clusters, {str(dt)[6:]}: clusters a wave holds "
+                f"on this card {waves_of[dt]}")
+        layouts = [(1, S) for S in (1, 2, 4, 8)
+                   if S <= admm_eig.GROUP_CAP[dt] and k["bt"] % S == 0]
+        layouts += [(C, 1) for C in admm_eig.CLUSTERS[dt]]
         for live in SWEEP_LIVE + (n_all,):
             kl = _with_live(a_d, k_d, live)
-            row = {S: time_ms(lambda: admm_eig.eig_chunk(*a_d, **dict(
-                kl, group=S)), 10) for S in groups}
-            log(f"  S sweep, {str(dt)[6:]}, {kl['n_live']} live: "
-                + ", ".join(f"S={S} {t:.3f} ms" for S, t in row.items())
-                + f"; policy S={admm_eig.eig_group(kl['n_live'], k['bt'], dt)}")
+            row = {lay: time_ms(lambda: admm_eig.eig_chunk(*a_d, **dict(
+                kl, layout=lay)), 10) for lay in layouts}
+            log(f"  layout sweep, {str(dt)[6:]}, {kl['n_live']} live: "
+                + ", ".join(f"(C, S)={c, s} {t:.3f} ms"
+                            for (c, s), t in row.items())
+                + "; policy "
+                + f"{layout(kl['n_live'], dt)}")
     ms, plain_ms, bound_ms, bound_by = timed[labels[1]]
     return dict(name="eig_chunk", route="cuda",
                 source="mpc_arpo_project_tpu_torch/csrc/eig_chunk.cu",

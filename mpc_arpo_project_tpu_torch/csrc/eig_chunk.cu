@@ -16,7 +16,11 @@
 // dinf, |dy|_inf, |dx|_inf. A done slot copies x, y, z through and writes
 // zero stats (the caller discards every output of a done row).
 //
-// Design: slot groups. One block serves S consecutive slots of one tile (S
+// Two layouts. Calls with few live slots run a thread-block cluster of C
+// blocks for each live slot (the cluster layout, described at
+// eig_chunk_kernel_cluster below; fp32); every other call runs slot groups.
+//
+// Slot groups. One block serves S consecutive slots of one tile (S
 // divides bt, so the group is combo-pure; S = 1, 2, 4 or 8 in fp32, 1 or 2
 // in fp64). The group's vectors live in dynamic shared memory
 // slot-interleaved, v[i * S + s], ~25 KB per slot in fp32 and ~50 KB in
@@ -65,13 +69,18 @@
 //     T^-1 into L2 at its start, so the stream overlaps the A' product and
 //     the W/YT products before the T^-1 product reads it, and the S slots'
 //     T^-1 loads go out together.
-// Blocks of all-done groups copy through and exit. All arithmetic is
-// CUDA-core FMA in full fp32 or fp64: reduced-precision products are known
-// to stall this solver.
+// Blocks of all-done groups copy through and exit. All arithmetic, in both
+// layouts, is CUDA-core FMA in full fp32 or fp64: reduced-precision
+// products are known to stall this solver.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -848,6 +857,714 @@ __global__ void __launch_bounds__(Layout<T>::block) eig_chunk_kernel(Args<T> a) 
   }
 }
 
+// ---- the cluster layout: a thread-block cluster of C blocks per slot -----
+//
+// For calls with few live slots. With one slot a block, a slot's iteration
+// is a chain of L2 round trips on one SM (~2.2 MB of shared matrices behind
+// about eight dependent products), whatever the other SMs do. Here C blocks
+// on C SMs (C = 2, 4, 8 or 16) serve one live slot:
+// * block `rank` owns 1/C of the output columns of every vec-times-matrix
+//   product (A_c', W_c, YT_c, the slot's T^-1, rsel, gsel, gscat, Pbar) and
+//   1/C of the rows of every matrix-times-vec product (A_c, W_c, YT_c) and
+//   of the s-correction's scatter;
+// * after each product the blocks put their slices into every block's copy
+//   of the vector through distributed shared memory and meet at one cluster
+//   barrier: nine an iteration. The elementwise updates run in every block
+//   on the replicated vectors;
+// * the block's shares of the shared matrices and of the slot's T^-1 are
+//   loaded into shared memory once a launch, as many as fit beside the
+//   vectors, largest first (at the flagship's nz=241, m=496, K=128: all of
+//   them at C = 16; both shares of A_c and W_c and YT_c's column share,
+//   ~197 KB, at C = 8); the rest stream from L2, C ways split;
+// * 256 threads a block from C = 8 up, one FMA chain each; 512 below, where
+//   a block has more columns (a build of 512 threads at C = 8 spilled).
+// What bounds it: latency. At C = 8 an iteration took ~17 us on the H100
+// (the one-slot kernel's ~100 us), of which the nine cluster barriers were
+// ~5 us; a chunk of 25 iterations 0.52 ms against the one-slot 2.6 ms
+// (PERF.md section 6).
+// Each sum keeps the one-slot kernel's order: a vecmat column's eight FMA
+// chains (over the same rows, in the same row groups) and their pairwise
+// tree, here with P threads a column and 8/P chains each, the partial trees
+// added by one thread; a matvec row's warp of lane chains and its
+// butterfly; the scatter's one chain; the end-of-chunk reductions on the
+// first 256 threads in the one-slot map (in every block, rank 0 writing);
+// and the elementwise updates written as there. So a slot's x, y, z and
+// stats are bit for bit those of S = 1.
+// The grid covers the live slots only: cluster ci finds the ci-th live slot
+// itself (a scan of `done`). Clusters past the live count, launched to fill
+// one wave of the card, and every live block first copy a share of the done
+// slots through (x, y, z; zero stats), so one call stays one launch.
+
+// A cluster block's threads, and the threads P that share a vecmat column
+// (each with 8/P of its chains).
+template <int C>
+struct ClShape {
+  static constexpr int threads = C >= 8 ? 256 : 512;
+  static constexpr int P = C >= 4 ? 8 : 4;
+};
+constexpr int kClWarpsMax = 16;
+// the shared memory a block of an H100 can hold (227 KB)
+constexpr int kClSmemCap = 232448;
+
+// The products' matrices: column shares of the vecmat operands, row shares
+// of the matvec operands, the scatter's column share (its columns are A's
+// rows).
+enum {
+  kMAc, kMAr, kMWc, kMWr, kMYc, kMYr, kMTinv, kMRsel, kMGsel, kMGscat,
+  kMScat, kMPbar, kMats
+};
+
+struct ClArgs {
+  int n_grid;        // clusters that look for a live slot
+  int moff[kMats];   // a share's offset in shared memory (elements), or -1
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// rows and columns of matrix k; whether blocks share its columns (else rows)
+__host__ __device__ inline void mat_shape(int k, int nz, int m, int K, int gw,
+                                          int* nrow, int* ncol, bool* cols) {
+  const int r[kMats] = {m, m, nz, nz, K, K, K, m, nz, gw, gw, nz};
+  const int c[kMats] = {nz, nz, nz, nz, nz, nz, K, gw, gw, nz, m, nz};
+  *nrow = r[k];
+  *ncol = c[k];
+  *cols = !(k == kMAr || k == kMWr || k == kMYr);
+}
+
+// elements of a block's share of matrix k (the widest rank's)
+template <int C>
+__host__ __device__ inline int share_elems(int k, int nz, int m, int K,
+                                           int gw) {
+  int nrow, ncol;
+  bool cols;
+  mat_shape(k, nz, m, K, gw, &nrow, &ncol, &cols);
+  return cols ? nrow * cdiv(ncol, C) : cdiv(nrow, C) * ncol;
+}
+
+// the one-slot kernel's row groups of a vecmat ncol wide
+__host__ __device__ inline int row_groups(int ncol) {
+  return ncol < kThreads ? kThreads / ncol : 1;
+}
+
+// chain partials of a cluster block: P per column of each row group
+template <int C>
+__host__ __device__ inline int cl_part_elems(int nz, int K, int gw) {
+  const int w[3] = {nz, K, gw};
+  int most = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int e = row_groups(w[i]) * cdiv(w[i], C);
+    most = e > most ? e : most;
+  }
+  return ClShape<C>::P * most;
+}
+
+// shared-memory elements of a cluster block's vectors: 9 of nz, 9 of m, 3 of
+// K, the gw lanes, the chain partials, the reduction scratch, the scalars
+// and the slot-finding scratch
+template <int C>
+__host__ __device__ inline int cl_vec_elems(int nz, int m, int K, int gw) {
+  return 9 * nz + 9 * m + 3 * K + gw + cl_part_elems<C>(nz, K, gw) + 32 +
+         kScalars + kClWarpsMax + 1;
+}
+
+// A block's share of a matrix: element (i, c) at p[i * ld + c].
+template <typename T>
+struct MatRef {
+  const T* p;
+  int ld;
+};
+
+// Columns (or rows) [c0, c0 + n) of a block's share of n_all.
+struct Share {
+  int c0, n;
+};
+template <int C>
+__device__ __forceinline__ Share share_of(int n_all, int rank) {
+  const int per = cdiv(n_all, C);
+  const int c0 = min(n_all, rank * per);
+  return {c0, min(n_all, c0 + per) - c0};
+}
+
+// Pairwise sum of N consecutive chain sums: ((h0+h1)+(h2+h3))+... as the
+// one-slot kernel's dot_col adds its eight chains.
+template <int N, typename T>
+__device__ __forceinline__ T tree(const T* h) {
+  if constexpr (N == 1) {
+    return h[0];
+  } else {
+    return tree<N / 2>(h) + tree<N / 2>(h + N / 2);
+  }
+}
+
+template <typename T, int C>
+struct ClBlock {
+  static constexpr int NT = ClShape<C>::threads;
+  static constexpr int NW = NT / 32;
+  static constexpr int P = ClShape<C>::P;  // threads a vecmat column
+  static constexpr int R = 8 / P;          // chains a thread
+
+  int nz, m, gw;
+  // this block's columns of nz, K and gw wide products, and its rows of
+  // A_c (W_c's and YT_c's rows are the shares of nz and K)
+  Share sz_, sk_, sg_, rm_;
+  MatRef<T> mat[kMats];
+  T* part;                 // chain partials
+  T* g;                    // the gw correction lanes
+  T* tm;                   // scratch (m): A' input; this block's rows of A_c v
+  T* tnz;                  // scratch (nz): this block's columns of A_c' w
+  const T* rsc;            // debris row scale (m)
+  T als;
+
+  // v into element e of `vec` in every block of the cluster
+  static __device__ __forceinline__ void put(T* vec, int e, T v) {
+    cg::cluster_group cl = cg::this_cluster();
+#pragma unroll
+    for (int r = 0; r < C; ++r) cl.map_shared_rank(vec, r)[e] = v;
+  }
+  // every block's puts are visible to every block
+  static __device__ __forceinline__ void sync() { cg::this_cluster().sync(); }
+
+  // out[j] = val(j, sum_i v[i] M[i, j]) on this block's columns j of an
+  // nrow x ncol vecmat, put into every block's `out` (PUT) or this block's.
+  // The one-slot kernel's sums: the rows in row_groups(ncol) groups; in a
+  // group eight FMA chains (chain q: rows i0 + 8 b + q, then the group's
+  // rows past its last full eight in chain 0), P threads a column each with
+  // R of them (q = p R + k), the pairwise tree; the groups added in order.
+  template <bool PUT, class Val>
+  __device__ __forceinline__ void vecmat(MatRef<T> M, const T* v, int nrow,
+                                         int ncol, Share s, T* out, Val val) {
+    const int G = row_groups(ncol);
+    const int rows = G > 1 ? cdiv(nrow, G) : nrow;
+    const int units = G * P * s.n;
+    for (int u = threadIdx.x; u < units; u += NT) {
+      const int c = u % s.n, gp = u / s.n, p = gp % P, g0 = (gp / P) * rows;
+      const int g1 = min(nrow, g0 + rows);
+      const int nb = g1 > g0 ? (g1 - g0) >> 3 : 0;
+      const T* col = M.p + c;
+      T acc[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) acc[k] = T(0);
+#pragma unroll 8
+      for (int b = 0; b < nb; ++b) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const int i = g0 + 8 * b + p * R + k;
+          acc[k] = fma(v[i], col[static_cast<size_t>(i) * M.ld], acc[k]);
+        }
+      }
+      if (p == 0)
+        for (int i = g0 + 8 * nb; i < g1; ++i)
+          acc[0] = fma(v[i], col[static_cast<size_t>(i) * M.ld], acc[0]);
+      part[gp * s.n + c] = tree<R>(acc);
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < s.n; c += NT) {
+      T d = T(0);
+      for (int g = 0; g < G; ++g) {
+        T h[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) h[p] = part[(g * P + p) * s.n + c];
+        const T dg = tree<P>(h);
+        d = g == 0 ? dg : d + dg;
+      }
+      const int j = s.c0 + c;
+      const T o = val(j, d);
+      if constexpr (PUT) {
+        put(out, j, o);
+      } else {
+        out[j] = o;
+      }
+    }
+    __syncthreads();  // part is reused by the next product
+  }
+
+  // out[i] = sum_j M[i, j] v[j] on this block's rows i (ncol <= 256), put
+  // into every block's `out` (PUT) or this block's. The one-slot kernel's
+  // sums: a warp per row, lane l's chain over j = l + 32 k, the warp's
+  // butterfly (every lane ends with the row's sum; lane r puts it to block
+  // r). A warp loads RB rows before it sums them.
+  template <bool PUT>
+  __device__ __forceinline__ void matvec(MatRef<T> M, const T* v, int ncol,
+                                         Share s, T* out) {
+    constexpr int RB = 4;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    T vf[kLaneCols];
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k) {
+      const int j = lane + 32 * k;
+      vf[k] = j < ncol ? v[j] : T(0);
+    }
+    for (int r0 = w; r0 < s.n; r0 += RB * NW) {
+      T mr[RB][kLaneCols];
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int r = r0 + q * NW;
+        const T* row = M.p + static_cast<size_t>(r < s.n ? r : r0) * M.ld;
+#pragma unroll
+        for (int k = 0; k < kLaneCols; ++k)
+          mr[q][k] = lane + 32 * k < ncol ? row[lane + 32 * k] : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int r = r0 + q * NW;  // the same in every lane
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < kLaneCols; ++k)
+          if (lane + 32 * k < ncol) acc = fma(mr[q][k], vf[k], acc);
+        for (int o = 16; o > 0; o >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (r < s.n) {
+          if constexpr (PUT) {
+            if (lane < C)
+              cg::this_cluster().map_shared_rank(out, lane)[s.c0 + r] = acc;
+          } else {
+            if (lane == 0) out[s.c0 + r] = acc;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // out = A' w (the debris rows scaled, the s-correction added), val(j, .)
+  // of it put into every block's `out`: the gw lanes g from rsel and this
+  // block's columns of A_c' (w rsc), then gscat's columns. Two barriers.
+  template <class Val>
+  __device__ __forceinline__ void apply_AT(const T* w, T* out, Val val) {
+    for (int i = threadIdx.x; i < m; i += NT) tm[i] = mul_rn(w[i], rsc[i]);
+    vecmat<true>(mat[kMRsel], w, m, gw, sg_, g,
+                 [&](int, T d) { return mul_rn(als, d); });
+    vecmat<false>(mat[kMAc], tm, m, nz, sz_, tnz, [](int, T d) { return d; });
+    sync();
+    vecmat<true>(mat[kMGscat], g, gw, nz, sz_, out,
+                 [&](int j, T d) { return val(j, add_rn(tnz[j], d)); });
+    sync();
+  }
+
+  // out = A v, put into every block's `out`: this block's rows of A_c v and
+  // the gw lanes g from gsel, then the scatter's chain on those rows and
+  // the debris row scale. Two barriers.
+  __device__ __forceinline__ void apply_A(const T* v, T* out) {
+    matvec<false>(mat[kMAr], v, nz, rm_, tm);
+    vecmat<true>(mat[kMGsel], v, nz, gw, sg_, g,
+                 [&](int, T d) { return mul_rn(als, d); });
+    sync();
+    // one chain a row, in k order, as the one-slot kernel's
+    const MatRef<T> sc = mat[kMScat];
+    for (int r = threadIdx.x; r < rm_.n; r += NT) {
+      const int i = rm_.c0 + r;
+      T corr = T(0);
+      for (int k = 0; k < gw; ++k)
+        corr = fma(g[k], sc.p[static_cast<size_t>(k) * sc.ld + r], corr);
+      put(out, i, fma(tm[i], rsc[i], corr));
+    }
+    sync();
+  }
+
+  // out = v Pbar, put into every block's `out`. One barrier.
+  __device__ __forceinline__ void apply_P(const T* v, T* out) {
+    vecmat<true>(mat[kMPbar], v, nz, nz, sz_, out, [](int, T d) { return d; });
+    sync();
+  }
+};
+
+// Copy a share of the done slots' x, y, z through and zero their stats:
+// the grid's blocks split the arrays, eight elements a thread at a time.
+template <int NT, typename T>
+__device__ void pass_done(const Args<T>& a) {
+  constexpr int U = 8;
+  const size_t t0 = static_cast<size_t>(blockIdx.x) * NT + threadIdx.x;
+  const size_t st = static_cast<size_t>(gridDim.x) * NT;
+  auto copy = [&](const T* src, T* dst, size_t n, int w) {
+    for (size_t e0 = t0; e0 < n; e0 += U * st) {
+      T v[U];
+      bool dn[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const size_t e = e0 + u * st;
+        dn[u] = e < n && a.done[e / w];
+        v[u] = e < n ? src[e] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (dn[u]) dst[e0 + u * st] = v[u];
+    }
+  };
+  const size_t B = a.B;
+  copy(a.x, a.xo, B * a.nz, a.nz);
+  copy(a.y, a.yo, B * a.m, a.m);
+  copy(a.z, a.zo, B * a.m, a.m);
+  for (size_t e = t0; e < B * 8; e += st)
+    if (a.done[e / 8]) a.stats[e] = T(0);
+}
+
+// dst[i * dld + c] = src[i * sld + c] for a rows x w block, four loads a
+// thread in flight.
+template <int NT, typename T>
+__device__ void copy_share(T* dst, int dld, const T* src, int sld, int rows,
+                           int w) {
+  constexpr int U = 4;
+  const int n = rows * w;
+  for (int e0 = threadIdx.x; e0 < n; e0 += U * NT) {
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT, i = e / w;
+      if (e < n) v[u] = src[static_cast<size_t>(i) * sld + (e - i * w)];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * NT, i = e / w;
+      if (e < n) dst[i * dld + (e - i * w)] = v[u];
+    }
+  }
+}
+
+// The count of live slots before this thread's run [*i0, *i1) of slots: a
+// block-wide scan of the runs' live counts. Leaves sh[NT / 32] at -1.
+template <int NT>
+__device__ int live_before(const unsigned char* done, int B, int* sh, int* i0,
+                           int* i1) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int per = cdiv(B, NT);
+  *i0 = min(B, tid * per);
+  *i1 = min(B, *i0 + per);
+  int cnt = 0;
+  for (int i = *i0; i < *i1; ++i) cnt += done[i] ? 0 : 1;
+  int inc = cnt;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) sh[w] = inc;
+  if (tid == 0) sh[NT / 32] = -1;
+  __syncthreads();
+  int excl = inc - cnt;
+  for (int k = 0; k < w; ++k) excl += sh[k];
+  return excl;
+}
+
+// The index of the ci-th slot that is not done, in slot order, or -1.
+template <int NT>
+__device__ int live_slot(const unsigned char* done, int B, int ci, int* sh) {
+  int i0, i1;
+  int left = ci - live_before<NT>(done, B, sh, &i0, &i1);
+  if (left >= 0)
+    for (int i = i0; i < i1; ++i)
+      if (!done[i] && left-- == 0) {
+        sh[NT / 32] = i;
+        break;
+      }
+  __syncthreads();
+  return sh[NT / 32];
+}
+
+// Live slots past the first n_grid, which no cluster computes (a call that
+// gives fewer live slots than it has), get NaN x, y, z and stats: the
+// solver resets a row with non-finite stats, and a test sees them.
+template <int NT, typename T>
+__device__ void mark_uncomputed(const Args<T>& a, int n_grid, int* sh) {
+  int i0, i1;
+  int rank = live_before<NT>(a.done, a.B, sh, &i0, &i1);
+  const T nan = static_cast<T>(NAN);
+  for (int i = i0; i < i1; ++i) {
+    if (a.done[i] || rank++ < n_grid) continue;
+    const size_t onz = static_cast<size_t>(i) * a.nz;
+    const size_t om = static_cast<size_t>(i) * a.m;
+    for (int j = 0; j < a.nz; ++j) a.xo[onz + j] = nan;
+    for (int j = 0; j < a.m; ++j) a.yo[om + j] = a.zo[om + j] = nan;
+    for (int j = 0; j < 8; ++j) a.stats[static_cast<size_t>(i) * 8 + j] = nan;
+  }
+  __syncthreads();  // sh is read again
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(ClShape<C>::threads, 1)
+    eig_chunk_kernel_cluster(Args<T> a, ClArgs cla) {
+  constexpr int NT = ClShape<C>::threads;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int nz = a.nz, m = a.m, K = a.K, gw = a.gw, tid = threadIdx.x;
+  const int ci = blockIdx.x / C;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+
+  T* sx = sm;  // nz vectors
+  T* sq = sx + nz;
+  T* sdg = sq + nz;
+  T* rhs = sdg + nz;
+  T* u = rhs + nz;
+  T* ud = u + nz;
+  T* xs = ud + nz;
+  T* xt = xs + nz;
+  T* tnz = xt + nz;
+  T* sy = tnz + nz;  // m vectors
+  T* sz = sy + m;
+  T* slb = sz + m;
+  T* sub = slb + m;
+  T* srho = sub + m;
+  T* srsc = srho + m;
+  T* sw = srsc + m;
+  T* tm = sw + m;
+  T* ax = tm + m;
+  T* ka = ax + m;  // K vectors
+  T* kt = ka + K;
+  T* kh = kt + K;
+  T* sg = kh + K;  // gw
+  T* part = sg + gw;
+  T* red = part + cl_part_elems<C>(nz, K, gw);
+  T* sc = red + 32;
+  int* sh = reinterpret_cast<int*>(sc + kScalars);
+
+  pass_done<NT>(a);
+  if (blockIdx.x == gridDim.x - 1) mark_uncomputed<NT>(a, cla.n_grid, sh);
+  const int slot = ci < cla.n_grid ? live_slot<NT>(a.done, a.B, ci, sh) : -1;
+  if (slot < 0) return;  // the whole cluster: no block touches another's memory
+
+  const size_t onz = static_cast<size_t>(slot) * nz;
+  const size_t om = static_cast<size_t>(slot) * m;
+  const int combo = a.tile_combo[slot / a.bt];
+
+  ClBlock<T, C> k{nz, m, gw};
+  k.sz_ = share_of<C>(nz, rank);
+  k.sk_ = share_of<C>(K, rank);
+  k.sg_ = share_of<C>(gw, rank);
+  k.rm_ = share_of<C>(m, rank);
+  k.part = part;
+  k.g = sg;
+  k.tm = tm;
+  k.tnz = tnz;
+  k.rsc = srsc;
+
+  // this block's shares: in shared memory where the plan placed them (loaded
+  // once for the chunk), else in global memory
+  {
+    const T* Ac = a.A + static_cast<size_t>(combo) * m * nz;
+    const T* Wc = a.W + static_cast<size_t>(combo) * nz * nz;
+    const T* Yc = a.YT + static_cast<size_t>(combo) * K * nz;
+    const T* base[kMats] = {Ac, Ac, Wc, Wc, Yc, Yc,
+                            a.tinv + static_cast<size_t>(slot) * K * K,
+                            a.rsel, a.gsel, a.gscat, a.scat, a.pbar};
+    for (int q = 0; q < kMats; ++q) {
+      int nrow, ncol;
+      bool cols;
+      mat_shape(q, nz, m, K, gw, &nrow, &ncol, &cols);
+      const Share s = share_of<C>(cols ? ncol : nrow, rank);
+      const T* g0 = base[q] + (cols ? s.c0 : static_cast<size_t>(s.c0) * ncol);
+      if (cla.moff[q] < 0) {
+        k.mat[q] = {g0, ncol};
+        continue;
+      }
+      T* dst = sm + cla.moff[q];
+      const int ld = cols ? cdiv(ncol, C) : ncol;
+      copy_share<NT>(dst, ld, g0, ncol, cols ? nrow : s.n, cols ? s.n : ncol);
+      k.mat[q] = {dst, ld};
+    }
+  }
+
+  if (tid == 0) {
+    const size_t o = static_cast<size_t>(slot) * 8;
+    const T r = a.scal[o + 0];
+    const T sv = a.scal[o + 1];
+    T al = a.scal[o + 2];
+    if (al == T(0)) al = T(1);
+    const T alsq = mul_rn(al, al);
+    const T ralsq = mul_rn(r, alsq);
+    sc[kR] = r;
+    sc[kAl] = al;
+    sc[kRs] = mul_rn(ralsq, sv);
+    sc[kRss] = mul_rn(mul_rn(ralsq, sv), sv);
+    sc[kRuu] = mul_rn(r, sub_rn(alsq, T(1)));
+    sc[kAls] = mul_rn(al, sv);
+  }
+  __syncthreads();
+  k.als = sc[kAls];
+  for (int j = tid; j < nz; j += NT) {
+    sx[j] = a.x[onz + j];
+    sq[j] = a.qbar[onz + j];
+    sdg[j] = a.dg[onz + j];
+  }
+  for (int i = tid; i < m; i += NT) {
+    sy[i] = a.y[om + i];
+    sz[i] = a.z[om + i];
+    slb[i] = a.lbar[om + i];
+    sub[i] = a.ubar[om + i];
+    srho[i] = mul_rn(sc[kR], a.rhov[i]);
+    srsc[i] = fma(sub_rn(sc[kAl], T(1)), a.dmask[i], T(1));
+  }
+  ClBlock<T, C>::sync();  // loaded; every block of the cluster running
+
+  const int half = K / 2;
+  const T rs = sc[kRs], rss = sc[kRss], ruu = sc[kRuu];
+  for (int it = 0; it < a.n_iter; ++it) {
+    // rhs = sigma x - qbar + A'(rho z - y)
+    for (int i = tid; i < m; i += NT)
+      sw[i] = fma(srho[i], sz[i], -sy[i]);
+    __syncthreads();
+    k.apply_AT(sw, rhs, [&](int j, T d) {
+      return add_rn(fma(a.sigma, sx[j], -sq[j]), d);
+    });
+
+    // exact solve: u = rhs W; d = u dg; a = d YT'; t = a T^-1;
+    // h = rs (t K1) + rss (t w33) + ruu (t wuu); xt = ((u - h YT) dg) W'
+    k.template vecmat<true>(k.mat[kMWc], rhs, nz, nz, k.sz_, ud,
+                            [&](int j, T d) {
+                              u[j] = d;
+                              return mul_rn(d, sdg[j]);
+                            });
+    k.sync();
+    k.template matvec<true>(k.mat[kMYr], ud, nz, k.sk_, ka);
+    k.sync();
+    k.template vecmat<true>(k.mat[kMTinv], ka, K, K, k.sk_, kt,
+                            [](int, T d) { return d; });
+    k.sync();
+    for (int l = tid; l < K; l += NT) {
+      const T t = kt[l];
+      const T tsw = kt[l < half ? l + half : l - half];
+      kh[l] = fma(ruu, mul_rn(t, a.wuu[l]),
+                  fma(rs, tsw, mul_rn(rss, mul_rn(t, a.w33[l]))));
+    }
+    __syncthreads();
+    k.template vecmat<true>(k.mat[kMYc], kh, K, nz, k.sz_, xs,
+                            [&](int j, T d) {
+                              return mul_rn(sub_rn(u[j], d), sdg[j]);
+                            });
+    k.sync();
+    k.template matvec<true>(k.mat[kMWr], xs, nz, k.sz_, xt);
+    k.sync();
+
+    // zt = A xt; relaxation, clip, dual update
+    k.apply_A(xt, ax);
+    for (int i = tid; i < m; i += NT) {
+      const T ztmp = fma(a.alpha, ax[i], mul_rn(a.one_m_alpha, sz[i]));
+      T zn = add_rn(ztmp, sy[i] / srho[i]);
+      zn = zn < slb[i] ? slb[i] : zn;  // NaN stays NaN, as in jnp.clip
+      zn = zn > sub[i] ? sub[i] : zn;
+      sy[i] = fma(srho[i], sub_rn(ztmp, zn), sy[i]);
+      sz[i] = zn;
+    }
+    for (int j = tid; j < nz; j += NT)
+      sx[j] = fma(a.alpha, xt[j], mul_rn(a.one_m_alpha, sx[j]));
+    __syncthreads();
+  }
+
+  if (rank == 0) {
+    for (int j = tid; j < nz; j += NT) a.xo[onz + j] = sx[j];
+    for (int i = tid; i < m; i += NT) {
+      a.yo[om + i] = sy[i];
+      a.zo[om + i] = sz[i];
+    }
+  }
+
+  // ---- scaled residuals and certificates: the products split over the
+  // cluster; the reductions in every block in the one-slot thread map
+  // (thread tid < kThreads takes elements tid, tid + kThreads, ...)
+  const MaxOp mx{};
+  const SumOp sum{};
+  k.apply_A(sx, ax);  // A x
+  T rp[1] = {T(0)}, axm[1] = {T(0)}, azz[1] = {T(0)};
+  for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+    const T e = a.einv[i];
+    rp[0] = pmax(rp[0], fabs(mul_rn(e, sub_rn(ax[i], sz[i]))));
+    axm[0] = pmax(axm[0], fabs(mul_rn(e, ax[i])));
+    azz[0] = pmax(azz[0], fabs(mul_rn(e, sz[i])));
+  }
+  block_reduce<T, 1>(rp, red, mx);
+  block_reduce<T, 1>(axm, red, mx);
+  block_reduce<T, 1>(azz, red, mx);
+  const T rp_rel = pmax(axm[0], azz[0]);
+
+  k.apply_P(sx, rhs);                                      // P x
+  k.apply_AT(sy, ud, [](int, T d) { return d; });          // A'y
+  T rd[1] = {T(0)}, dpx[1] = {T(0)}, daty[1] = {T(0)}, dq[1] = {T(0)};
+  for (int j = tid; tid < kThreads && j < nz; j += kThreads) {
+    const T d = a.dinv[j];
+    rd[0] = pmax(rd[0], fabs(mul_rn(d, add_rn(add_rn(rhs[j], sq[j]), ud[j]))));
+    dpx[0] = pmax(dpx[0], fabs(mul_rn(d, rhs[j])));
+    daty[0] = pmax(daty[0], fabs(mul_rn(d, ud[j])));
+    dq[0] = pmax(dq[0], fabs(mul_rn(d, sq[j])));
+  }
+  block_reduce<T, 1>(rd, red, mx);
+  block_reduce<T, 1>(dpx, red, mx);
+  block_reduce<T, 1>(daty, red, mx);
+  block_reduce<T, 1>(dq, red, mx);
+  const T rd_rel = pmax(dpx[0], pmax(daty[0], dq[0]));
+
+  // primal infeasibility (Farkas) certificate from dy, projected onto the
+  // polar of the recession cone of [l, u]
+  T nv[1] = {T(0)}, sup_u[1] = {T(0)}, sup_l[1] = {T(0)};
+  for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+    const T uinf = isfinite(sub[i]) ? T(0) : T(1);
+    const T linf = isfinite(slb[i]) ? T(0) : T(1);
+    const T both = uinf * linf;
+    const T uo = uinf * (T(1) - linf);
+    const T lo = linf * (T(1) - uinf);
+    T v = mul_rn(sub_rn(sy[i], a.y[om + i]), T(1) - both);
+    v = fma(v, T(1) - uo, mul_rn(pmin(v, T(0)), uo));
+    v = fma(v, T(1) - lo, mul_rn(pmax(v, T(0)), lo));
+    sw[i] = v;
+    nv[0] = pmax(nv[0], fabs(v));
+    const T ucap = uinf == T(0) ? sub[i] : T(0);
+    const T lcap = linf == T(0) ? slb[i] : T(0);
+    sup_u[0] = fma(ucap, pmax(v, T(0)), sup_u[0]);
+    sup_l[0] = fma(lcap, pmin(v, T(0)), sup_l[0]);
+  }
+  block_reduce<T, 1>(nv, red, mx);
+  block_reduce<T, 1>(sup_u, red, sum);
+  block_reduce<T, 1>(sup_l, red, sum);
+  const T sup = add_rn(sup_u[0], sup_l[0]);
+  k.apply_AT(sw, xs, [](int, T d) { return d; });  // A'v
+  T atv[1] = {T(0)};
+  for (int j = tid; tid < kThreads && j < nz; j += kThreads)
+    atv[0] = pmax(atv[0], fabs(xs[j]));
+  block_reduce<T, 1>(atv, red, mx);
+
+  // dual infeasibility certificate from dx
+  T nvx[1] = {T(0)}, qv[1] = {T(0)};
+  for (int j = tid; tid < kThreads && j < nz; j += kThreads) {
+    const T d = sub_rn(sx[j], a.x[onz + j]);
+    u[j] = d;
+    nvx[0] = pmax(nvx[0], fabs(d));
+    qv[0] = fma(sq[j], d, qv[0]);
+  }
+  block_reduce<T, 1>(nvx, red, mx);
+  block_reduce<T, 1>(qv, red, sum);
+  k.apply_P(u, xt);  // P dx
+  T pdx[1] = {T(0)};
+  for (int j = tid; tid < kThreads && j < nz; j += kThreads)
+    pdx[0] = pmax(pdx[0], fabs(xt[j]));
+  block_reduce<T, 1>(pdx, red, mx);
+  k.apply_A(u, ax);  // A dx: the cluster's last exchange
+  const T eps_b = mul_rn(a.eps_dinf, nvx[0]);
+  T up_viol[1] = {T(0)}, lo_viol[1] = {T(0)};
+  for (int i = tid; tid < kThreads && i < m; i += kThreads) {
+    const T uinf = isfinite(sub[i]) ? T(0) : T(1);
+    const T linf = isfinite(slb[i]) ? T(0) : T(1);
+    up_viol[0] = pmax(up_viol[0],
+                      pmax(sub_rn(ax[i], eps_b), T(0)) * (T(1) - uinf));
+    lo_viol[0] = pmax(lo_viol[0],
+                      pmax(sub_rn(-eps_b, ax[i]), T(0)) * (T(1) - linf));
+  }
+  block_reduce<T, 1>(up_viol, red, mx);
+  block_reduce<T, 1>(lo_viol, red, mx);
+  if (rank == 0 && tid == 0) {
+    const bool pinf = (fma(a.eps_pinf, nv[0], -atv[0]) > T(0)) &&
+                      (fma(-a.thresh, nv[0], -sup) > T(0)) &&
+                      (nv[0] - a.eps_pinf > T(0));
+    const bool dinf = (sub_rn(eps_b, pdx[0]) > T(0)) &&
+                      (sub_rn(-eps_b, qv[0]) > T(0)) && up_viol[0] == T(0) &&
+                      lo_viol[0] == T(0) && (nvx[0] - a.eps_dinf > T(0));
+    T* st = a.stats + static_cast<size_t>(slot) * 8;
+    st[0] = rp[0];
+    st[1] = rp_rel;
+    st[2] = rd[0];
+    st[3] = rd_rel;
+    st[4] = pinf ? T(1) : T(0);
+    st[5] = dinf ? T(1) : T(0);
+    st[6] = nv[0];
+    st[7] = nvx[0];
+  }
+}
+
 }  // namespace
 
 // ---- host launch: plain C interface, loaded with ctypes ------------------
@@ -870,9 +1587,9 @@ int launch_group(const Args<T>& a, void* stream) {
 }
 
 template <typename T>
-int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
-           int n_iter, int group, double sigma, double alpha, double eps_pinf,
-           double eps_dinf, double thresh, void* stream) {
+Args<T> make_args(void* const* p, int B, int nz, int m, int K, int gw, int bt,
+                  int n_iter, double sigma, double alpha, double eps_pinf,
+                  double eps_dinf, double thresh) {
   Args<T> a;
   a.tile_combo = static_cast<const int*>(p[0]);
   a.tinv = static_cast<const T*>(p[1]);
@@ -916,6 +1633,15 @@ int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
   a.eps_pinf = static_cast<T>(eps_pinf);
   a.eps_dinf = static_cast<T>(eps_dinf);
   a.thresh = static_cast<T>(thresh);
+  return a;
+}
+
+template <typename T>
+int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
+           int n_iter, int group, double sigma, double alpha, double eps_pinf,
+           double eps_dinf, double thresh, void* stream) {
+  const Args<T> a = make_args<T>(p, B, nz, m, K, gw, bt, n_iter, sigma, alpha,
+                                 eps_pinf, eps_dinf, thresh);
   if (B == 0) return 0;
   if (nz > 32 * kLaneCols || group < 1 || bt % group || B % bt)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -928,6 +1654,112 @@ int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
     case 8:
       if constexpr (sizeof(T) == 4) return launch_group<T, 8>(a, stream);
       break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cluster layout's shared memory: the vectors, then the block's matrix
+// shares, largest first, each that still fits the 227 KB a block can hold
+// (Pbar, read twice a chunk, streams); moff gets each share's offset or -1.
+// Returns the block's bytes.
+template <int C>
+size_t cl_plan(int nz, int m, int K, int gw, int* moff) {
+  const size_t cap = kClSmemCap / sizeof(float);
+  size_t used = static_cast<size_t>(cl_vec_elems<C>(nz, m, K, gw));
+  for (int q = 0; q < kMats; ++q) moff[q] = -1;
+  for (;;) {
+    int best = -1;
+    size_t most = 0;
+    for (int q = 0; q < kMats; ++q) {
+      const size_t e = static_cast<size_t>(share_elems<C>(q, nz, m, K, gw));
+      if (moff[q] < 0 && q != kMPbar && used + e <= cap && e > most) {
+        best = q;
+        most = e;
+      }
+    }
+    if (best < 0) break;
+    moff[best] = static_cast<int>(used);
+    used += most;
+  }
+  return used * sizeof(float);
+}
+
+// Lets the kernel take up to all the shared memory a block can hold (each
+// launch asks for its plan's part) and, at C = 16, clusters larger than the
+// portable 8.
+template <int C>
+cudaError_t cl_prepare() {
+  cudaError_t e = cudaFuncSetAttribute(
+      eig_chunk_kernel_cluster<float, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kClSmemCap);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(eig_chunk_kernel_cluster<float, C>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  return e;
+}
+
+template <int C>
+cudaLaunchConfig_t cl_config(unsigned blocks, size_t smem,
+                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(ClShape<C>::threads);
+  cfg.dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// n_clusters clusters of C blocks, the first n_grid looking for a live slot
+// each, with the block's shared memory and shares' offsets of cl_plan (the
+// kernel prepared by cl_shape).
+template <int C>
+int launch_cluster(const Args<float>& a, int n_grid, int n_clusters,
+                   int smem, const int* moff, void* stream) {
+  ClArgs cla;
+  cla.n_grid = n_grid;
+  for (int q = 0; q < kMats; ++q) cla.moff[q] = moff[q];
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cl_config<C>(static_cast<unsigned>(n_clusters) * C, smem, attr);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, eig_chunk_kernel_cluster<float, C>, a, cla);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout of clusters of C blocks at these shapes, once per shape: the
+// block's shared memory and shares' offsets (cl_plan), and how many
+// clusters the card holds at once, one wave. An error (the plan does not
+// fit) is returned and cleared.
+template <int C>
+int cl_shape(int nz, int m, int K, int gw, int* waves, int* smem,
+             int* moff) {
+  *smem = static_cast<int>(cl_plan<C>(nz, m, K, gw, moff));
+  cudaError_t e = cl_prepare<C>();
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cl_config<C>(C, *smem, attr);
+    e = cudaOccupancyMaxActiveClusters(waves,
+                                       eig_chunk_kernel_cluster<float, C>, &cfg);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+template <class F>
+int with_cluster(int C, F f) {
+  switch (C) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -952,3 +1784,42 @@ int launch(void* const* p, int B, int nz, int m, int K, int gw, int bt,
 
 EIG_CHUNK_ENTRY(eig_chunk_f32, float)
 EIG_CHUNK_ENTRY(eig_chunk_f64, double)
+
+// The cluster layout (fp32): C blocks a live slot, n_clusters clusters of
+// which the first n_grid each take a live slot (the rest, and every block,
+// copy a share of the done slots through); smem and moff as
+// eig_cluster_shape gave them for these shapes.
+extern "C" int eig_cluster_f32(
+    void* p0, void* p1, void* p2, void* p3, void* p4, void* p5, void* p6,
+    void* p7, void* p8, void* p9, void* p10, void* p11, void* p12, void* p13,
+    void* p14, void* p15, void* p16, void* p17, void* p18, void* p19,
+    void* p20, void* p21, void* p22, void* p23, void* p24, void* p25,
+    void* p26, void* p27, void* p28, int B, int nz, int m, int K, int gw,
+    int bt, int n_iter, int C, int n_grid, int n_clusters, int smem,
+    const int* moff, double sigma, double alpha, double eps_pinf,
+    double eps_dinf, double thresh, void* stream) {
+  void* const p[29] = {p0,  p1,  p2,  p3,  p4,  p5,  p6,  p7,  p8,  p9,
+                       p10, p11, p12, p13, p14, p15, p16, p17, p18, p19,
+                       p20, p21, p22, p23, p24, p25, p26, p27, p28};
+  const Args<float> a = make_args<float>(p, B, nz, m, K, gw, bt, n_iter, sigma,
+                                         alpha, eps_pinf, eps_dinf, thresh);
+  if (B == 0) return 0;
+  if (nz > 32 * kLaneCols || B % bt || n_grid < 0 || n_grid > n_clusters ||
+      n_clusters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_cluster(C, [&](auto c) {
+    return launch_cluster<decltype(c)::value>(a, n_grid, n_clusters, smem,
+                                              moff, stream);
+  });
+}
+
+// The cluster layout of size C at these shapes (cl_shape); moff has room
+// for n_moff offsets, at least the kernel's kMats.
+extern "C" int eig_cluster_shape(int C, int nz, int m, int K, int gw,
+                                 int* waves, int* smem, int* moff,
+                                 int n_moff) {
+  if (n_moff < kMats) return static_cast<int>(cudaErrorInvalidValue);
+  return with_cluster(C, [&](auto c) {
+    return cl_shape<decltype(c)::value>(nz, m, K, gw, waves, smem, moff);
+  });
+}

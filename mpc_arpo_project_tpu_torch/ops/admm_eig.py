@@ -11,9 +11,10 @@ is documented there). Three pieces:
 * ``eig_chunk`` — the dispatching wrapper. A CPU tensor goes to the twin;
   a CUDA tensor goes to the hand-written kernel ``csrc/eig_chunk.cu``
   (built with nvcc at first use) or the call raises. Done rows are passed
-  through with zero stats, per problem, in both versions. The kernel works
-  on groups of S slots per block; ``eig_group`` picks S from the call's
-  live count.
+  through with zero stats, per problem, in both versions. The kernel runs
+  a thread-block cluster of C blocks for each live slot (narrow fp32
+  calls) or groups of S slots per block; ``eig_layout`` picks the layout
+  from the call's live count.
 * ``tinv_refresh`` / ``tinv_safe_refresh`` — batched Newton–Schulz refresh
   of each problem's T⁻¹; plain batched matmuls, as the JAX package computes
   them in XLA.
@@ -203,7 +204,9 @@ def eig_group(n_live: int, bt: int, dtype) -> int:
     blocks; within ``GROUP_CAP[dtype]`` and dividing ``bt``. A block
     iterates slower the more slots it holds (chip_smoke's sweep over S and
     live counts), so S grows only when another wave would start. Pure: the
-    live count comes from a host read the solver makes anyway."""
+    live count comes from a host read the solver makes anyway. In fp32
+    ``eig_layout`` gives calls of up to ``CLUSTER_WAVES`` waves of clusters
+    to the cluster layout, so there S serves only the wider calls."""
     cap = GROUP_CAP[dtype]
     S = 1
     while (2 * S <= cap and bt % (2 * S) == 0
@@ -212,13 +215,41 @@ def eig_group(n_live: int, bt: int, dtype) -> int:
     return S
 
 
+# cluster sizes C of the kernel's cluster layout, C blocks a live slot
+# (fp32 only: fp64 keeps its slot groups)
+CLUSTERS = {torch.float32: (2, 4, 8, 16), torch.float64: ()}
+# the smallest cluster stays ahead of the slot groups while its clusters
+# fill at most this many waves (the sweep of PERF.md section 6: clusters of
+# 2 at 330 live slots, five waves, 4.00 ms against 4.80 for the fastest
+# group)
+CLUSTER_WAVES = 5
+
+
+def eig_layout(n_live: int, bt: int, dtype, waves):
+    """Layout (C, S) of the CUDA kernel for a chunk with ``n_live`` running
+    slots in tiles of ``bt``: the largest cluster size C whose clusters,
+    one a live slot, fit one wave of the card; else the smallest whose
+    clusters fit ``CLUSTER_WAVES`` waves; else ``eig_group``'s slots per
+    block, as (1, S). ``waves`` maps each cluster size to the clusters a
+    wave holds, 0 where the size does not fit (the card's: ``_waves``).
+    Pure: the live count comes from a host read the solver makes anyway."""
+    sizes = sorted(C for C in CLUSTERS[dtype] if waves.get(C, 0) > 0)
+    if n_live > 0:
+        for C in reversed(sizes):
+            if n_live <= waves[C]:
+                return (C, 1)
+        if sizes and n_live <= CLUSTER_WAVES * waves[sizes[0]]:
+            return (sizes[0], 1)
+    return (1, eig_group(n_live, bt, dtype))
+
+
 def eig_chunk(
     tile_combo, tinv, scal, qbar, lbar, ubar, dg, x, y, z,
     Ast, Wst, YTst, pbar, K1, w33row, gsel_s, scat_s, rsel_s, gscat_s,
     rho_vec, einv, dinv, *, n_iter: int, sigma: float, alpha: float,
     eps_pinf: float, eps_dinf: float, pinf_margin: float, bt: int = 32,
     done=None, wuu_row=None, dmask=None, n_live: Optional[int] = None,
-    group: Optional[int] = None,
+    layout=None,
 ):
     """Run ``n_iter`` fused ADMM iterations with the shared-basis solve.
 
@@ -234,9 +265,13 @@ def eig_chunk(
     count one launch in ``eig_chunk.launches``; anything else raises.
 
     ``n_live`` (the count of not-done slots, None: all B) picks the
-    kernel's slots per block, ``eig_group(n_live, bt, dtype)``; ``group``
-    forces it (a power of two up to ``GROUP_CAP[dtype]`` that divides
-    ``bt``). Neither moves a bit of the result. The twin ignores both."""
+    kernel's layout, ``eig_layout(n_live, bt, dtype, waves)``: a cluster
+    of C blocks for each live slot, whose grid covers ``n_live`` slots (a
+    live slot beyond them gets NaN x, y, z and stats), or groups of S slots
+    a block. ``layout`` forces (C, S): (C, 1) with C one of
+    ``CLUSTERS[dtype]``, or (1, S) with S a power of two up to
+    ``GROUP_CAP[dtype]`` that divides ``bt``. Neither moves a bit of the
+    result. The twin ignores both."""
     kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha, eps_pinf=eps_pinf,
               eps_dinf=eps_dinf, pinf_margin=pinf_margin, bt=bt, done=done,
               wuu_row=wuu_row, dmask=dmask)
@@ -248,7 +283,7 @@ def eig_chunk(
     if x.device.type != "cuda":
         raise ValueError(f"eig_chunk: no kernel for device {x.device}")
     with span("kernel.eig_chunk"):
-        return _eig_chunk_cuda(*args, n_live=n_live, group=group, **kw)
+        return _eig_chunk_cuda(*args, n_live=n_live, layout=layout, **kw)
 
 
 eig_chunk.launches = 0
@@ -265,15 +300,51 @@ def _lib():
             fn = getattr(lib, f"eig_chunk_{suffix}")
             fn.argtypes = [P] * 29 + [I] * 8 + [D] * 5 + [P]
             fn.restype = I
+        lib.eig_cluster_f32.argtypes = ([P] * 29 + [I] * 11 + [P] + [D] * 5
+                                        + [P])
+        lib.eig_cluster_f32.restype = I
+        lib.eig_cluster_shape.argtypes = [I] * 5 + [P] * 3 + [I]
+        lib.eig_cluster_shape.restype = I
         lib._eig_chunk_typed = True
     return lib
+
+
+_shape_cache: dict = {}
+
+
+def _cluster_shapes(dt, nz, m, K, gw, device):
+    """The cluster layouts of ``CLUSTERS[dt]`` at these shapes on
+    ``device``, asked of the card once per (type, shape, device): the
+    clusters of each size one wave holds (0 where a size does not fit), and
+    for each size the block's shared-memory bytes and its matrix shares'
+    offsets, which its launches pass on."""
+    key = (dt, nz, m, K, gw, device)
+    if key not in _shape_cache:
+        waves, plans = {}, {}
+        with torch.cuda.device(device):
+            for C in CLUSTERS[dt]:
+                n, smem = ctypes.c_int(0), ctypes.c_int(0)
+                moff = (ctypes.c_int * 16)()
+                err = _lib().eig_cluster_shape(
+                    C, nz, m, K, gw, ctypes.addressof(n),
+                    ctypes.addressof(smem), ctypes.addressof(moff), len(moff))
+                waves[C] = n.value if err == 0 else 0
+                plans[C] = (smem.value, ctypes.addressof(moff), moff)
+        _shape_cache[key] = (waves, plans)
+    return _shape_cache[key]
+
+
+def _waves(dt, nz, m, K, gw, device):
+    """Clusters of each size of ``CLUSTERS[dt]`` one wave of ``device``
+    holds at these shapes (0 where a size does not fit)."""
+    return _cluster_shapes(dt, nz, m, K, gw, device)[0]
 
 
 def _eig_chunk_cuda(
     tile_combo, tinv, scal, qbar, lbar, ubar, dg, x, y, z,
     Ast, Wst, YTst, pbar, K1, w33row, gsel_s, scat_s, rsel_s, gscat_s,
     rho_vec, einv, dinv, *, n_iter, sigma, alpha, eps_pinf, eps_dinf,
-    pinf_margin, bt, done, wuu_row, dmask, n_live, group,
+    pinf_margin, bt, done, wuu_row, dmask, n_live, layout,
 ):
     B, nz = x.shape
     m, K = y.shape[1], tinv.shape[1]
@@ -291,12 +362,6 @@ def _eig_chunk_cuda(
     if nz > 256:
         raise ValueError(f"eig_chunk: nz={nz} > 256 (the kernel keeps a "
                          "row's vector in eight registers per lane)")
-    if group is None:
-        group = eig_group(B if n_live is None else n_live, bt, dt)
-    if group not in (1, 2, 4, 8) or group > GROUP_CAP[dt] or bt % group:
-        raise ValueError(f"eig_chunk: group={group} slots per block; it must "
-                         f"be a power of two up to {GROUP_CAP[dt]} for {dt} "
-                         f"that divides bt={bt}")
     n_combo = Ast.shape[0]
     shapes = dict(
         tile_combo=(tile_combo, (B // bt,), torch.int32),
@@ -324,7 +389,21 @@ def _eig_chunk_cuda(
             raise TypeError(f"eig_chunk: {name} is {t.dtype}, expected {tdt}")
         if not t.is_contiguous():
             raise ValueError(f"eig_chunk: {name} is not contiguous")
-    fn = getattr(_lib(), f"eig_chunk_{_C_TYPES[dt]}")
+    n_grid = B if n_live is None else int(n_live)
+    if not 0 <= n_grid <= B:
+        raise ValueError(f"eig_chunk: n_live={n_live} for {B} slots")
+    waves, plans = (_cluster_shapes(dt, nz, m, K, gw, x.device)
+                    if CLUSTERS[dt] else ({}, {}))
+    if layout is None:
+        layout = eig_layout(n_grid, bt, dt, waves)
+    C, group = layout
+    if C != 1 and (C not in CLUSTERS[dt] or group != 1):
+        raise ValueError(f"eig_chunk: layout {layout}: a cluster takes C in "
+                         f"{CLUSTERS[dt]} for {dt}, one slot each")
+    if group not in (1, 2, 4, 8) or group > GROUP_CAP[dt] or bt % group:
+        raise ValueError(f"eig_chunk: layout {layout}: S={group} slots per "
+                         f"group must be a power of two up to "
+                         f"{GROUP_CAP[dt]} for {dt} that divides bt={bt}")
     xo = torch.empty_like(x)
     yo = torch.empty_like(y)
     zo = torch.empty_like(z)
@@ -334,10 +413,20 @@ def _eig_chunk_cuda(
         Ast, Wst, YTst, pbar, w33row, gsel_s, scat_s, rsel_s, gscat_s,
         rho_vec, einv, dinv, wuu_row, dmask, xo, yo, zo, stats)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    floats = (float(sigma), float(alpha), float(eps_pinf), float(eps_dinf),
+              float(max(eps_pinf, pinf_margin)))
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, B, nz, m, K, gw, bt, n_iter, group, float(sigma),
-                 float(alpha), float(eps_pinf), float(eps_dinf),
-                 float(max(eps_pinf, pinf_margin)), stream)
+        if C > 1:
+            # a wave of clusters at least: those past the live slots copy
+            # the done slots through beside them
+            smem, moff, _ = plans[C]
+            err = _lib().eig_cluster_f32(*ptrs, B, nz, m, K, gw, bt, n_iter,
+                                         C, n_grid, max(n_grid, 1, waves[C]),
+                                         smem, moff, *floats, stream)
+        else:
+            fn = getattr(_lib(), f"eig_chunk_{_C_TYPES[dt]}")
+            err = fn(*ptrs, B, nz, m, K, gw, bt, n_iter, group, *floats,
+                     stream)
     if err != 0:
         raise RuntimeError(f"eig_chunk: CUDA kernel launch failed "
                            f"(cudaError {err})")

@@ -14,8 +14,10 @@ NaN). The second imports ``mpc_arpo_project_tpu_torch`` from ``DIR``
 tree's kernel on the card, and reports, per call, whether the results are
 identical. Keywords the other tree's entry does not take (``n_need``,
 ``n_live``, ``group``, ``layout``) are dropped. Where the tree's
-``eig_chunk`` takes ``group``, each call also runs with every
-slots-per-block S the call's ``bt`` and type allow; where its
+``eig_chunk`` takes ``group`` (older trees), each call also runs with every
+slots-per-block S the call's ``bt`` and type allow; where it takes
+``layout``, with those S and every cluster size C of
+``admm_eig.CLUSTERS``; where its
 ``admm_chunk`` takes ``layout``, with every (cluster size C, slots per
 block S) of ``admm_pallas.LAYOUTS``. Each run is timed on that tree
 (median of 5 CUDA-event runs after one warm-up), so two trees' kernels can
@@ -67,8 +69,8 @@ def _time_ms(fn, n=5):
 def _chunk_runs(entry, mod, c, dt):
     """(label, extra keywords) of the runs of one saved chunk-kernel call:
     the call's own, then each layout the tree can force (``eig_chunk``:
-    slots per block S; ``admm_chunk``: cluster size C and slots per block
-    S)."""
+    slots per block S, and clusters of C blocks where it has them;
+    ``admm_chunk``: cluster size C and slots per block S)."""
     params = inspect.signature(entry).parameters
     runs = [("policy", {})]
     if "group" in params:
@@ -76,8 +78,13 @@ def _chunk_runs(entry, mod, c, dt):
         runs += [(f"S={S}", {"group": S}) for S in (1, 2, 4, 8)
                  if S <= cap and c["kw"]["bt"] % S == 0]
     if "layout" in params:
-        runs += [(f"C={C} S={S}", {"layout": (C, S)})
-                 for C, S in mod.LAYOUTS[dt]]
+        if hasattr(mod, "LAYOUTS"):
+            layouts = mod.LAYOUTS[dt]
+        else:  # eig_chunk: slots per block S, then clusters of C blocks
+            layouts = [(1, S) for S in (1, 2, 4, 8)
+                       if S <= mod.GROUP_CAP[dt] and c["kw"]["bt"] % S == 0]
+            layouts += [(C, 1) for C in mod.CLUSTERS[dt]]
+        runs += [(f"C={C} S={S}", {"layout": (C, S)}) for C, S in layouts]
     return runs, params
 
 

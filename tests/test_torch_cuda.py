@@ -152,22 +152,29 @@ def test_cuda_profiler_sees_one_eig_chunk_kernel(gpu, chunks, tmp_path):
     """``torch.profiler`` records the kernel the port launches through
     ``ctypes``: one ``eig_chunk`` call under the profiler (the library built
     before it) is one kernel event of ``eig_chunk_kernel`` in the Chrome
-    trace, and one launch counted by the wrapper."""
+    trace, and one launch counted by the wrapper; so is a call in the
+    cluster layout (fp32), whose one event is the cluster kernel's."""
     a, k = chunks["warm"]
     ac, kc = _to(a, k, gpu)
-    admm_eig._lib()
-    torch.cuda.synchronize()
-    n0 = admm_eig.eig_chunk.launches
-    with profile_trace(str(tmp_path)):
-        admm_eig.eig_chunk(*ac, **kc)
+    a32, k32 = _on_card(a, k, torch.float32, gpu)
+    k32 = dict(k32, n_live=int((~k32["done"]).sum()), layout=(8, 1))
+    for i, (args, kw) in enumerate(((ac, kc), (a32, k32))):
+        admm_eig.eig_chunk(*args, **kw)  # built, shapes' waves asked
         torch.cuda.synchronize()
-    assert admm_eig.eig_chunk.launches == n0 + 1
-    with open(tmp_path / "trace.json") as fh:
-        events = json.load(fh)["traceEvents"]
-    assert profile_step.kernel_events(events, "eig_chunk_kernel") == 1
-    agg = profile_step.aggregate(events, 1, 10)
-    assert agg["device"] is not None
-    assert 0.0 <= agg["device"]["idle_share"] <= 1.0
+        n0 = admm_eig.eig_chunk.launches
+        out = tmp_path / str(i)
+        with profile_trace(str(out)):
+            admm_eig.eig_chunk(*args, **kw)
+            torch.cuda.synchronize()
+        assert admm_eig.eig_chunk.launches == n0 + 1
+        with open(out / "trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+        assert profile_step.kernel_events(events, "eig_chunk_kernel") == 1
+        assert profile_step.kernel_events(
+            events, "eig_chunk_kernel_cluster") == i
+        agg = profile_step.aggregate(events, 1, 10)
+        assert agg["device"] is not None
+        assert 0.0 <= agg["device"]["idle_share"] <= 1.0
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(gpu, chunks):
@@ -517,11 +524,14 @@ def _on_card(a, k, dtype, gpu):
 @pytest.mark.parametrize("case", ["warm", "infeasible", "ragged"])
 def test_cuda_slot_groups_are_bit_identical(gpu, chunks, dtype, case):
     """Every slots-per-block S the type allows (up to 8 in fp32, 2 in
-    fp64) gives the one-slot (S = 1) instance's x, y, z and stats bit for
-    bit, and so does the policy's S for the live count: on the fixture's
-    tiles of 4 widened to 8 (so S = 8 runs in fp32), with groups that mix done and live slots ('warm' has two
-    inactive problems; 'ragged' leaves 5 live slots of each copy), and each
-    slot equal to its copy in the widened tile."""
+    fp64), and in fp32 every cluster layout (C blocks a live slot, C in
+    ``CLUSTERS``), gives the one-slot (S = 1) instance's x, y, z and stats
+    bit for bit, and so does the policy's layout for the live count (a
+    cluster in fp32, where the live slots fit one wave): on the fixture's
+    tiles of 4 widened to 8 (so S = 8 runs in fp32), with groups that mix
+    done and live slots ('warm' has two inactive problems; 'ragged' leaves
+    5 live slots of each copy, 10 in all), and each slot equal to its copy
+    in the widened tile."""
     a, k = chunks["infeasible" if case == "infeasible" else "warm"]
     if case == "ragged":
         done = k["done"].clone()
@@ -536,10 +546,23 @@ def test_cuda_slot_groups_are_bit_identical(gpu, chunks, dtype, case):
     outs = {}
     for S in groups:
         n0 = admm_eig.eig_chunk.launches
-        outs[S] = admm_eig.eig_chunk(*ag, **kg, group=S)
+        outs[S] = admm_eig.eig_chunk(*ag, **kg, layout=(1, S))
         torch.cuda.synchronize()
         assert admm_eig.eig_chunk.launches == n0 + 1
+    for C in admm_eig.CLUSTERS[dtype]:
+        n0 = admm_eig.eig_chunk.launches
+        outs[(C, 1)] = admm_eig.eig_chunk(*ag, **kg, n_live=n_live,
+                                          layout=(C, 1))
+        torch.cuda.synchronize()
+        assert admm_eig.eig_chunk.launches == n0 + 1
+    assert len(admm_eig.CLUSTERS[dtype]) == (
+        4 if dtype == torch.float32 else 0)
     outs["policy"] = admm_eig.eig_chunk(*ag, **kg, n_live=n_live)
+    nz, m, K, gw = ag[7].shape[1], ag[8].shape[1], ag[1].shape[1], \
+        ag[16].shape[1]
+    policy = admm_eig.eig_layout(n_live, bt, dtype, admm_eig._waves(
+        dtype, nz, m, K, gw, gpu))
+    assert (policy[0] > 1) == (dtype == torch.float32), policy
     for S, out in outs.items():
         for o, r in zip(out, outs[1]):
             assert _same(o, r), S
@@ -549,8 +572,10 @@ def test_cuda_slot_groups_are_bit_identical(gpu, chunks, dtype, case):
 
 
 def test_cuda_wrapper_rejects_a_group_the_kernel_does_not_take(gpu, chunks):
-    """A slots-per-block S that does not divide bt, is not a power of two,
-    or exceeds the type's cap raises, and no launch is counted."""
+    """A layout (1, S) whose slots per block S does not divide bt, is not a
+    power of two, or exceeds the type's cap raises, and so does a cluster
+    layout in fp64, a cluster size the kernel does not take, or a cluster
+    of more than one slot; no launch is counted."""
     a, k = chunks["warm"]
     n0 = admm_eig.eig_chunk.launches
     for dtype, S in ((torch.float32, 8), (torch.float64, 4),
@@ -558,9 +583,35 @@ def test_cuda_wrapper_rejects_a_group_the_kernel_does_not_take(gpu, chunks):
                      (torch.float32, 0)):
         with pytest.raises(ValueError, match="group"):
             admm_eig.eig_chunk(*_on_card(a, k, dtype, gpu)[0],
-                               **_on_card(a, k, dtype, gpu)[1], group=S)
+                               **_on_card(a, k, dtype, gpu)[1], layout=(1, S))
+    for dtype, lay in ((torch.float64, (8, 1)), (torch.float64, (2, 1)),
+                       (torch.float32, (3, 1)), (torch.float32, (32, 1)),
+                       (torch.float32, (8, 2))):
+        with pytest.raises(ValueError, match="layout"):
+            admm_eig.eig_chunk(*_on_card(a, k, dtype, gpu)[0],
+                               **_on_card(a, k, dtype, gpu)[1], layout=lay)
     assert k["bt"] % 8
     assert admm_eig.eig_chunk.launches == n0
+
+
+@pytest.mark.parametrize("C", [2, 4, 8, 16])
+def test_cuda_cluster_marks_live_slots_past_n_live(gpu, chunks, C):
+    """A cluster call given one live slot fewer than it has computes the
+    first ``n_live`` live slots as the one-slot instance does, copies the
+    done slots through, and gives the last live slot, which no cluster
+    took, NaN x, y, z and stats (so the solver resets its row)."""
+    a, k = chunks["warm"]
+    ag, kg = _on_card(*_widen(a, k, 2), torch.float32, gpu)
+    live = torch.nonzero(~kg["done"]).squeeze(1)
+    ref = admm_eig.eig_chunk(*ag, **kg, layout=(1, 1))
+    out = admm_eig.eig_chunk(*ag, **kg, n_live=live.numel() - 1,
+                             layout=(C, 1))
+    torch.cuda.synchronize()
+    last = int(live[-1])
+    for o, r in zip(out, ref):
+        assert torch.isnan(o[last]).all()
+        assert _same(o[live[:-1]], r[live[:-1]])
+        assert _same(o[kg["done"]], r[kg["done"]])
 
 
 def _pallas_case(pallas, case):

@@ -191,11 +191,68 @@ def test_eig_group_follows_the_census(dtype):
         assert S == teig.GROUP_CAP[dtype] or -(-n_live // S) + 4 <= per_card
 
 
+# clusters of each size an NVIDIA H100 80GB HBM3 holds at once at the
+# chunk shapes of the flagship and of radialC (K=128, gw=64), as the
+# kernel's wrapper reads them from the card
+H100_WAVES = {2: 66, 4: 30, 8: 15, 16: 7}
+# the wave tables the layout policy is held to: that card's and a smaller
+# card's, on which clusters end below 129 live slots
+_WAVES = [H100_WAVES, {2: 24, 4: 12, 8: 6, 16: 0}]
+
+
+@pytest.mark.parametrize("waves", _WAVES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_layout_takes_clusters_for_narrow_calls(dtype, waves):
+    """fp32: the largest cluster size whose clusters (one a live slot) fit
+    one wave, else the smallest whose clusters fit ``CLUSTER_WAVES`` waves
+    (a cluster at 1, 11 and 16 live slots); above that range, and at no
+    live slot, ``eig_group``'s slots per block, unchanged. fp64 never takes
+    a cluster."""
+    assert set(waves) == set(teig.CLUSTERS[torch.float32])
+    assert teig.CLUSTERS[torch.float64] == ()
+    sizes = sorted(c for c, n in waves.items() if n > 0)
+    top = teig.CLUSTER_WAVES * waves[sizes[0]]
+    for n_live in (1, 11, 16):
+        C, S = teig.eig_layout(n_live, 32, dtype, waves)
+        assert S == 1 and (C > 1) == (dtype == torch.float32)
+    for n_live in range(0, 1153):
+        C, S = teig.eig_layout(n_live, 32, dtype, waves)
+        if dtype == torch.float64 or n_live == 0 or n_live > top:
+            assert (C, S) == (1, teig.eig_group(n_live, 32, dtype))
+            continue
+        assert S == 1
+        one = [c for c in sizes if n_live <= waves[c]]
+        assert C == (max(one) if one else sizes[0])
+    for n_live in (top + 1, 1024):
+        assert teig.eig_layout(n_live, 32, torch.float32, waves) == (
+            1, teig.eig_group(n_live, 32, torch.float32))
+    if waves is not H100_WAVES:
+        for n_live in (129, 264):
+            assert teig.eig_layout(n_live, 32, torch.float32, waves) == (
+                1, teig.eig_group(n_live, 32, torch.float32))
+
+
+def test_eig_layout_follows_the_sweep():
+    """At the sweep's live counts (PERF.md section 6) the policy, on the
+    H100's wave table, picks the layout that timed fastest on the card: clusters of 16 up to
+    7 live slots, 8 up to 15, 4 up to 30, 2 up to 330 (five waves), the
+    slot groups beyond."""
+    f32 = torch.float32
+    want = {1: (16, 1), 7: (16, 1), 8: (8, 1), 11: (8, 1), 15: (8, 1),
+            16: (4, 1), 30: (4, 1), 33: (2, 1), 66: (2, 1), 100: (2, 1),
+            128: (2, 1), 264: (2, 1), 330: (2, 1), 331: (1, 4),
+            1024: (1, 8)}
+    for n_live, lay in want.items():
+        assert teig.eig_layout(n_live, 32, f32, H100_WAVES) == lay, n_live
+
+
 def test_eig_chunk_twin_ignores_the_group_keywords(chunks):
     """On the CPU the wrapper runs the twin whatever ``n_live`` and
-    ``group`` say."""
+    ``layout`` say."""
     a, k, ref, _ = chunks["warm"]
-    for extra in (dict(n_live=3), dict(group=4), dict(n_live=3, group=1)):
+    for extra in (dict(n_live=3), dict(layout=(1, 4)),
+                  dict(n_live=3, layout=(1, 1)),
+                  dict(n_live=3, layout=(8, 1)), dict(layout=(16, 1))):
         out = teig.eig_chunk(*a, **k, **extra)
         for o, r in zip(out, ref):
             assert torch.equal(o, r)
